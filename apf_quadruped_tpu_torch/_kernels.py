@@ -1,0 +1,98 @@
+"""Build and load the port's CUDA kernels: nvcc -> shared library -> ctypes.
+
+The sources in csrc/ are compiled at first use, for Hopper (sm_90a), into
+`_build/<name>-<hash>/` beside this file (listed in .gitignore); the hash
+covers the sources and the flags, so an edited source rebuilds.  A failed
+build or load raises: there is no fallback.  nvcc is looked up on PATH,
+then under $CUDA_HOME (default /usr/local/cuda).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent / "_build"
+
+# no --use_fast_math: approximate division and flush-to-zero change the
+# interior point's late iterations
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is not None:
+        return nvcc
+    candidate = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if candidate.is_file():
+        return str(candidate)
+    raise RuntimeError(
+        "nvcc not found on PATH or under $CUDA_HOME: the port's CUDA kernels "
+        f"are built from {CSRC} at first use and need the CUDA toolkit")
+
+
+def build(name: str, sources: list[Path]) -> Path:
+    """Compile `sources` into lib<name>.so (cached by content); the
+    compiler's output, with the ptxas register/spill report, is kept in
+    build.log beside it."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        digest.update(src.read_bytes())
+    out_dir = BUILD_ROOT / f"{name}-{digest.hexdigest()[:16]}"
+    lib = out_dir / f"lib{name}.so"
+    if lib.exists():
+        return lib
+    nvcc = find_nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"lib{name}.so.{os.getpid()}.tmp"
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                           *map(str, sources)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed to build {name} "
+                           f"(exit {proc.returncode}):\n{proc.stderr}")
+    (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)
+    return lib
+
+
+class IpmArgs(ctypes.Structure):
+    """Mirror of `struct IpmArgs` in csrc/resident_ipm.cu (same order)."""
+
+    _fields_ = ([(f, ctypes.c_void_p) for f in (
+        "A", "Bm", "q", "mask", "h", "x0", "G", "R", "Q",
+        "wu", "wz", "ws", "wvalid", "Cx", "cx", "maskx", "acc",
+        "u", "x", "z", "s", "zx", "sx", "stat", "scratch")]
+        + [(f, ctypes.c_int) for f in (
+            "B", "H", "nx", "nu", "m", "mc", "iters")]
+        + [(f, ctypes.c_float) for f in (
+            "reltol", "abstol", "sigma_pow", "frac", "w_clip", "min_slack",
+            "warm_floor", "reg")])
+
+
+@functools.cache
+def resident_ipm() -> ctypes.CDLL:
+    """The resident Riccati IPM library (csrc/resident_ipm.cu), built and
+    loaded once per process."""
+    lib = ctypes.CDLL(str(build("resident_ipm", [CSRC / "resident_ipm.cu"])))
+    lib.resident_ipm_launch.argtypes = [ctypes.POINTER(IpmArgs),
+                                        ctypes.c_void_p]
+    lib.resident_ipm_launch.restype = ctypes.c_int
+    lib.resident_ipm_scratch_rows.argtypes = [ctypes.c_int] * 5
+    lib.resident_ipm_scratch_rows.restype = ctypes.c_int
+    lib.resident_ipm_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
+    lib.resident_ipm_limits.restype = None
+    return lib
+
+
+def resident_ipm_limits() -> tuple[int, int, int, int]:
+    """(NX_MAX, NU_MAX, M_MAX, MC_MAX) compiled into the kernel."""
+    vals = [ctypes.c_int() for _ in range(4)]
+    resident_ipm().resident_ipm_limits(*[ctypes.byref(v) for v in vals])
+    return tuple(v.value for v in vals)

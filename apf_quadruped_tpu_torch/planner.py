@@ -1,0 +1,276 @@
+"""Convex SRB MPC over the gait horizon — the Riccati plan path.
+
+Port of apf_quadruped_tpu/planner.py.  Per replan: the gait supplies the
+contact schedule, the navigation layer the footholds and the CoM goal;
+the per-knot linearized SRB dynamics, the friction pyramids (masked by the
+stance schedule) and the optional base-box / base-accel rows make one
+StageQP per scenario, solved in one batched call of the Riccati interior
+point.  Gait switching changes data, never shapes.
+
+Backends (MpcConfig.backend), resolved by `effective_backend` from the
+tensors' device:
+  * "riccati_resident": the whole IPM as one CUDA kernel
+    (ops/cuda_riccati.py); on CPU tensors its plain version runs instead;
+  * "riccati": the IPM as plain PyTorch (ops/riccati.py);
+  * "auto": "riccati_resident" on a CUDA device, "riccati" on the CPU;
+  * "riccati_fused" and "condensed" are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ._precision import highest_precision
+from .config import EngineConfig
+from .models import srb
+from .ops.cuda_riccati import solve_stage_qp_resident
+from .ops.qpsolve import QPSolution
+from .ops.riccati import StageQP, WarmStart, solve_stage_qp
+
+ROWS_PER_FOOT = 6   # fz<=fmax, -fz<=-fmin, +-fx-mu fz<=0, +-fy-mu fz<=0
+
+
+class MpcRefs(NamedTuple):
+    """Per-knot references and schedule feeding one MPC solve."""
+
+    contacts: torch.Tensor   # (.., H, 4) stance masks
+    feet_w: torch.Tensor     # (.., H, 4, 3) foothold positions (world)
+    x_ref: torch.Tensor      # (.., H, NX) state references
+    yaw_ref: torch.Tensor    # (..,) linearization yaw
+    # optional (.., H, 4, 3, 3) terrain-aligned cone bases (columns t1, t2,
+    # n); None = world-z cones.  Realized as a change of force variables
+    # (see _rotate_B), so the solver's pyramid block is unchanged.
+    cone_rot: torch.Tensor | None = None
+
+
+class MpcPlan(NamedTuple):
+    forces: torch.Tensor     # (.., H, 4, 3) planned contact forces
+    states: torch.Tensor     # (.., H, NX) predicted state trajectory
+    sol: QPSolution          # solver diagnostics (converged, gap, ...)
+
+
+def foothold_schedule(feet_now_w, step_targets_w, contacts):
+    """(.., H, 4, 3) per-knot foot positions: a leg keeps its current world
+    position until its first swing knot in the horizon, then sits at its
+    step target."""
+    swung = torch.cumsum(1.0 - contacts, dim=-2) > 0         # (.., H, 4)
+    return torch.where(swung[..., None], step_targets_w[..., None, :, :],
+                       feet_now_w[..., None, :, :])
+
+
+def reference_trajectory(cfg: EngineConfig, rpy0, com0, com_des, yaw_des,
+                         horizon_T):
+    """(.., H, NX) linear CoM ramp to the goal at standing height."""
+    H = cfg.mpc.horizon
+    dtype, dev = com0.dtype, com0.device
+    tau = torch.arange(1, H + 1, dtype=dtype, device=dev) / H
+    com_k = com0[..., None, :] + (com_des - com0)[..., None, :] * tau[..., None]
+    v_ref = (com_des - com0) / horizon_T[..., None]
+    zero = torch.zeros_like(yaw_des)
+    rpy_k = torch.stack([zero, zero, yaw_des], dim=-1)
+    x = torch.zeros(com_k.shape[:-1] + (srb.NX,), dtype=dtype, device=dev)
+    x[..., 0:3] = rpy_k[..., None, :]
+    x[..., 3:6] = com_k
+    x[..., 9:12] = v_ref[..., None, :]
+    x[..., 12] = 1.0
+    return x
+
+
+def _rotate_B(B, cone_rot):
+    """u_world = C u_local folded into the input matrix:
+    B_local = B_world @ blockdiag(C_1..C_4) per knot."""
+    Bl = B.reshape(B.shape[:-1] + (4, 3))
+    Bl = torch.einsum("...xlj,...lji->...xli", Bl, cone_rot)
+    return Bl.reshape(B.shape)
+
+
+def _forces_to_world(u, cone_rot):
+    """u: (.., H, 12) local-basis forces -> world: f_w = C @ f_l per leg."""
+    ul = u.reshape(u.shape[:-1] + (4, 3))
+    return torch.einsum("...lji,...li->...lj", cone_rot, ul).reshape(u.shape)
+
+
+def _forces_to_local(u, cone_rot):
+    """Inverse of _forces_to_world: f_l = C' f_w per leg."""
+    uw = u.reshape(u.shape[:-1] + (4, 3))
+    return torch.einsum("...lji,...lj->...li", cone_rot, uw).reshape(u.shape)
+
+
+def effective_backend(cfg: EngineConfig, device) -> str:
+    """The backend plan() uses for tensors on `device`."""
+    backend = cfg.mpc.backend
+    if backend == "auto":
+        on_gpu = torch.device(device).type == "cuda"
+        return "riccati_resident" if on_gpu else "riccati"
+    if backend == "riccati_fused":
+        raise NotImplementedError(
+            "backend 'riccati_fused' needs the three pallas_riccati kernels "
+            "(_rollout_kernel, _factor_kernel, _vector_kernel), not ported "
+            "yet (ROADMAP queue 2, items 5-7)")
+    if backend == "condensed":
+        raise NotImplementedError(
+            "backend 'condensed' needs the dense QP solver ops.qpsolve, not "
+            "ported yet (ROADMAP queue 1, items 9-10)")
+    if backend not in ("riccati", "riccati_resident"):
+        raise ValueError(f"unknown MpcConfig.backend {backend!r}")
+    return backend
+
+
+def _pyramid_constants(cfg: EngineConfig):
+    """Static friction-pyramid data (identical at every knot; only the
+    stance mask is per-scenario data).  Returns numpy (24, 12) block and
+    (24,) rhs."""
+    mu = cfg.mpc.mu
+    rows = []
+    rhs = []
+    for i in range(4):
+        def row(cx, cy, cz, r):
+            v = [0.0] * 12
+            v[3 * i + 0] = cx
+            v[3 * i + 1] = cy
+            v[3 * i + 2] = cz
+            rows.append(v)
+            rhs.append(r)
+
+        row(0.0, 0.0, 1.0, cfg.mpc.fz_max)     # fz <= fz_max
+        row(0.0, 0.0, -1.0, -cfg.mpc.fz_min)   # -fz <= -fz_min
+        row(1.0, 0.0, -mu, 0.0)                # fx - mu fz <= 0
+        row(-1.0, 0.0, -mu, 0.0)
+        row(0.0, 1.0, -mu, 0.0)
+        row(0.0, -1.0, -mu, 0.0)
+    return np.asarray(rows), np.asarray(rhs)
+
+
+def plan(cfg: EngineConfig, state0, refs: MpcRefs,
+         warm: WarmStart | None = None) -> MpcPlan:
+    """One batched MPC solve.
+
+    state0: (.., NX) packed SRB state (srb.pack_state); refs: contact and
+    foothold schedules, state references.  warm: optional WarmStart from
+    the previous replan (world-frame forces).  Runs with TF32 off.
+    """
+    backend = effective_backend(cfg, state0.device)
+    with highest_precision():
+        return _plan_riccati(cfg, state0, refs, backend, warm)
+
+
+def _mpc_costs(cfg: EngineConfig, dtype, device=None):
+    mpc = cfg.mpc
+    return torch.tensor([mpc.w_att] * 3 + [mpc.w_pos] * 3 + [mpc.w_omega] * 3
+                        + [mpc.w_vel] * 3 + [0.0], dtype=dtype, device=device)
+
+
+def _linearizations(cfg: EngineConfig, refs: MpcRefs):
+    Hh = cfg.mpc.horizon
+    yaw = torch.broadcast_to(refs.yaw_ref[..., None],
+                             refs.yaw_ref.shape + (Hh,))
+    return srb.linearize_discrete(cfg.robot, yaw, refs.x_ref[..., 3:6],
+                                  refs.feet_w, refs.contacts, cfg.mpc.dt)
+
+
+def _sqp_relinearize(cfg: EngineConfig, state0, refs: MpcRefs, sol):
+    """Re-linearize the SRB dynamics around the predicted trajectory, with
+    the exact nonlinear one-step defect c_k = f(x_k, u_k) - A x_k - B u_k
+    folded into the affine carrier column of A (Gauss-Newton SQP)."""
+    dt = cfg.mpc.dt
+    xs = torch.cat([state0[..., None, :], sol.x[..., :-1, :]], dim=-2)
+    A, B = srb.linearize_discrete(cfg.robot, xs[..., 2], xs[..., 3:6],
+                                  refs.feet_w, refs.contacts, dt)
+    forces = (sol.u.reshape(sol.u.shape[:-1] + (4, 3))
+              * refs.contacts[..., None])
+    rpy, r, om, v = srb.unpack_state(xs)
+    d_rpy, d_r, d_om, d_v = srb.srb_derivative(
+        cfg.robot, rpy, r, om, v, refs.feet_w, forces)
+    dx = torch.cat([d_rpy, d_r, d_om, d_v, torch.zeros_like(xs[..., 12:13])],
+                   dim=-1)
+    f_nl = xs + dt * dx                              # exact Euler step
+    c = (f_nl - torch.einsum("...ij,...j->...i", A, xs)
+         - torch.einsum("...ij,...j->...i", B, sol.u))
+    A = A.clone()
+    A[..., :, 12] += c
+    return A, B
+
+
+def stage_qp(cfg: EngineConfig, state0, refs: MpcRefs, A=None,
+             B=None) -> StageQP:
+    """The StageQP plan() solves: costs, friction pyramids under the
+    stance masks, and the opt-in base_box state rows and base_acc accel
+    rows.  (A, B) default to the linearization around the references;
+    with refs.cone_rot, B is taken into the cone basis."""
+    mpc = cfg.mpc
+    dtype, dev = state0.dtype, state0.device
+    if A is None:
+        A, B = _linearizations(cfg, refs)
+    if refs.cone_rot is not None:
+        B = _rotate_B(B, refs.cone_rot)
+    q_diag = _mpc_costs(cfg, dtype, dev)
+    blk, rhs_blk = _pyramid_constants(cfg)
+    mask = torch.repeat_interleave(refs.contacts, ROWS_PER_FOOT, dim=-1)
+
+    # opt-in BaseRom box (towr base_motion_constraint.cc:46-55: roll and
+    # pitch in +-dev_rad, base z in [z0 - below, z0 + above]) as state rows
+    Cx = cx = mask_x = None
+    if mpc.base_box:
+        dims = (0, 1, 5)                               # roll, pitch, z
+        Cx_np = np.zeros((6, srb.NX))
+        for i, d in enumerate(dims):
+            Cx_np[i, d] = 1.0
+            Cx_np[3 + i, d] = -1.0
+        Cx = torch.as_tensor(Cx_np, dtype=dtype, device=dev)
+        z0 = state0[..., 5]
+        dev_rad = torch.tensor(mpc.base_dev_rad, dtype=dtype, device=dev)
+        his = torch.stack([dev_rad + 0.0 * z0, dev_rad + 0.0 * z0,
+                           z0 + mpc.base_z_above], dim=-1)
+        los = torch.stack([-dev_rad + 0.0 * z0, -dev_rad + 0.0 * z0,
+                           z0 - mpc.base_z_below], dim=-1)
+        cx1 = torch.cat([his, -los], dim=-1)           # (.., 6)
+        cx = torch.broadcast_to(cx1[..., None, :],
+                                state0.shape[:-1] + (mpc.horizon, 6))
+        mask_x = torch.ones_like(cx)
+
+    # base-acceleration bounds (towr BaseAcc analogue) as per-knot input
+    # rows derived inside the solver (StageQP.acc_rhs)
+    acc_rhs = None
+    if mpc.base_acc:
+        acc_rhs = torch.tensor([mpc.acc_ang_max] * 3 + [mpc.acc_lin_max] * 3,
+                               dtype=dtype, device=dev) * mpc.dt
+    return StageQP(
+        A=A, B=B, Q=torch.diag(q_diag), qlin=-refs.x_ref * q_diag,
+        R=mpc.w_force * torch.eye(srb.NU, dtype=dtype, device=dev),
+        G=torch.as_tensor(blk, dtype=dtype, device=dev),
+        h=torch.as_tensor(rhs_blk, dtype=dtype, device=dev), mask=mask,
+        x0=state0, Cx=Cx, cx=cx, mask_x=mask_x, acc_rhs=acc_rhs)
+
+
+def _plan_riccati(cfg: EngineConfig, state0, refs: MpcRefs, backend: str,
+                  warm: WarmStart | None = None) -> MpcPlan:
+    solver = (solve_stage_qp_resident if backend == "riccati_resident"
+              else solve_stage_qp)
+
+    def solve(A, B, warm):
+        if refs.cone_rot is not None and warm is not None:
+            # warm forces arrive in the world frame
+            warm = warm._replace(u=_forces_to_local(warm.u, refs.cone_rot))
+        sol = solver(stage_qp(cfg, state0, refs, A, B), cfg.solver, warm)
+        if refs.cone_rot is not None:
+            sol = sol._replace(u=_forces_to_world(sol.u, refs.cone_rot))
+        return sol
+
+    sol = solve(*_linearizations(cfg, refs), warm)
+    ones = torch.ones(state0.shape[:-1], dtype=torch.bool,
+                      device=state0.device)
+    for _ in range(max(1, cfg.mpc.sqp_iters) - 1):   # SQP outer loop
+        A, B = _sqp_relinearize(cfg, state0, refs, sol)
+        # each SQP re-solve warm-starts from the previous inner solution
+        sol = solve(A, B, WarmStart(u=sol.u, z=sol.z, s=sol.s, valid=ones))
+    diag = QPSolution(x=sol.u.reshape(sol.u.shape[:-2] + (-1,)),
+                      y=torch.zeros_like(state0[..., 0:1]),
+                      z=sol.z.reshape(sol.z.shape[:-2] + (-1,)),
+                      s=sol.s.reshape(sol.s.shape[:-2] + (-1,)),
+                      converged=sol.converged, iters=sol.iters,
+                      gap=sol.gap, res_norm=sol.res_norm)
+    return MpcPlan(forces=sol.u.reshape(sol.u.shape[:-1] + (4, 3)),
+                   states=sol.x, sol=diag)

@@ -1,0 +1,171 @@
+"""The CUDA resident IPM kernel against its plain version, on the card.
+
+Every test here needs a CUDA device and skips without one.  The file
+imports no JAX (the GPU machine has none) and takes its seed from its own
+fixture, so it runs there without tests/conftest.py, which imports jax:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py
+
+Gates are the JAX package's resident-vs-scan gates
+(tests/test_pallas_riccati.py): converged and iters exactly equal, u/x at
+atol 5e-5 in float32; where the inputs of two solves differ only in
+data the solver must ignore, the outputs are equal bit for bit.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from apf_quadruped_tpu_torch import convert, planner, problems
+from apf_quadruped_tpu_torch.config import EngineConfig, MpcConfig, SolverConfig
+from apf_quadruped_tpu_torch.ops import cuda_riccati
+from apf_quadruped_tpu_torch.ops import riccati as tr
+
+CFG = SolverConfig(iters=15, reltol=1e-4, abstol=1e-4,
+                   static_reg=1e-6, w_clip=1e6)
+ATOL = 5e-5
+VARIANTS = [(warm, mc, acc) for warm in (False, True) for mc in (0, 6)
+            for acc in (False, True)]
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def rng():
+    return np.random.default_rng(0)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the resident IPM kernel is built "
+                    "with nvcc for sm_90a and has no CPU mode")
+    return torch.device("cuda")
+
+
+def _qp(rng, dev, mc=0, acc=False, **kw):
+    # the accel rows assume the 13-state SRB layout
+    dims = dict(NX=13, NU=12, M=24) if acc else {}
+    return convert.stage_qp(
+        problems.random_stage_qp(rng, mc=mc, acc=acc, **(dims | kw)), dev)
+
+
+def _assert_close(out, ref, atol=ATOL):
+    assert torch.equal(out.converged, ref.converged)
+    assert torch.equal(out.iters, ref.iters)
+    assert float((out.u - ref.u).abs().max()) <= atol
+    assert float((out.x - ref.x).abs().max()) <= atol
+
+
+def _assert_equal(a, b):
+    for f in tr.StageSolution._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        assert (x is None and y is None) or torch.equal(x, y), f
+
+
+@pytest.mark.parametrize("has_warm,mc,acc", VARIANTS)
+def test_kernel_matches_plain(rng, dev, has_warm, mc, acc):
+    qp = _qp(rng, dev, mc=mc, acc=acc)
+    warm = None
+    if has_warm:
+        cold = tr.solve_stage_qp(qp, CFG)
+        warm = tr.WarmStart(u=cold.u, z=cold.z, s=cold.s,
+                            valid=torch.tensor([True, False, True, True],
+                                               device=dev))
+    ref = tr.solve_stage_qp(qp, CFG, warm)
+    before = cuda_riccati.solve_stage_qp_resident.launches
+    out = cuda_riccati.solve_stage_qp_resident(qp, CFG, warm)
+    assert cuda_riccati.solve_stage_qp_resident.launches == before + 1
+    assert out.z.shape == ref.z.shape
+    assert (out.zx is None) == (ref.zx is None)
+    _assert_close(out, ref)
+
+
+def test_kernel_over_block_edge(rng, dev):
+    """B=130 is not a multiple of the block's 4 scenarios."""
+    qp = _qp(rng, dev, B=130, H=3, NX=4, NU=3, M=4)
+    _assert_close(cuda_riccati.solve_stage_qp_resident(qp, CFG),
+                  tr.solve_stage_qp(qp, CFG), atol=1e-4)
+
+
+def test_kernel_nan_lane_quarantined(rng, dev):
+    """A poisoned lane comes back zeroed, unconverged, after every
+    iteration, with gap and residual inf, as from the plain version; the
+    other lanes are unaffected."""
+    qp = _qp(rng, dev)
+    x0 = qp.x0.clone()
+    x0[1, 0] = float("nan")
+    qp = qp._replace(x0=x0)
+    ref = tr.solve_stage_qp(qp, CFG)
+    out = cuda_riccati.solve_stage_qp_resident(qp, CFG)
+    assert bool(torch.isfinite(out.u).all() & torch.isfinite(out.z).all())
+    assert bool((out.u[1] == 0).all() & (out.x[1] == 0).all())
+    assert int(out.iters[1]) == CFG.iters
+    assert float(out.gap[1]) == float(out.res_norm[1]) == float("inf")
+    _assert_close(out, ref)
+    assert torch.equal(out.gap.isinf(), ref.gap.isinf())
+
+
+def test_kernel_masked_rows_inert(rng, dev):
+    """Moving G and h of a row that every knot masks changes nothing."""
+    qp = _qp(rng, dev, mask_frac=0.5)
+    mask = qp.mask.clone()
+    mask[..., 0] = 0.0
+    qp = qp._replace(mask=mask)
+    base = cuda_riccati.solve_stage_qp_resident(qp, CFG)
+    G, h = qp.G.clone(), qp.h.clone()
+    G[0] *= -3.0
+    h[0] = 0.01
+    _assert_equal(cuda_riccati.solve_stage_qp_resident(
+        qp._replace(G=G, h=h), CFG), base)
+
+
+@pytest.mark.parametrize("mc,acc", [(0, False), (6, True)])
+def test_kernel_invalid_warm_start_equals_cold(rng, dev, mc, acc):
+    qp = _qp(rng, dev, mc=mc, acc=acc)
+    cold = cuda_riccati.solve_stage_qp_resident(qp, CFG)
+    B, H, nu = qp.B.shape[0], qp.B.shape[1], qp.B.shape[-1]
+    mt = cold.z.shape[-1]
+    off = tr.WarmStart(u=torch.full((B, H, nu), 3.0, device=dev),
+                       z=torch.full((B, H, mt), 5.0, device=dev),
+                       s=torch.full((B, H, mt), 7.0, device=dev),
+                       valid=torch.zeros(B, dtype=torch.bool, device=dev))
+    _assert_equal(cuda_riccati.solve_stage_qp_resident(qp, CFG, off), cold)
+
+
+def test_kernel_unbatched(rng, dev):
+    """Scalar batch shape () round-trips through the flat batch axis."""
+    qp = _qp(rng, dev)
+    qp1 = qp._replace(A=qp.A[0], B=qp.B[0], qlin=qp.qlin[0],
+                      mask=qp.mask[0], x0=qp.x0[0])
+    out = cuda_riccati.solve_stage_qp_resident(qp1, CFG)
+    assert out.converged.shape == () and out.u.shape == (5, 4)
+    _assert_close(out, tr.solve_stage_qp(qp1, CFG))
+
+
+def test_kernel_rejects_what_it_does_not_take(rng, dev):
+    qp = _qp(rng, dev)
+    with pytest.raises(TypeError, match="float32"):
+        cuda_riccati.solve_stage_qp_resident(qp._replace(x0=qp.x0.double()),
+                                             CFG)
+    wide = _qp(rng, dev, NX=14)
+    with pytest.raises(ValueError, match="nx<=13"):
+        cuda_riccati.solve_stage_qp_resident(wide, CFG)
+
+
+def test_plan_auto_runs_the_kernel(dev):
+    """plan() on CUDA tensors goes through the kernel under backend auto
+    and agrees with the plain plan on the card."""
+    cfg = EngineConfig(mpc=MpcConfig(horizon=20, dt=0.025),
+                       solver=SolverConfig())
+    x0, refs = problems.bench_problem(cfg, 8, device=dev)
+    before = cuda_riccati.solve_stage_qp_resident.launches
+    out = planner.plan(cfg, x0, refs)
+    assert cuda_riccati.solve_stage_qp_resident.launches == before + 1
+    plain = planner.plan(EngineConfig(
+        mpc=MpcConfig(horizon=20, dt=0.025, backend="riccati"),
+        solver=SolverConfig()), x0, refs)
+    assert torch.equal(out.sol.iters, plain.sol.iters)
+    assert bool(out.sol.converged.all())
+    ftol = 1e-3 * max(1.0, float(plain.forces.abs().max()))
+    assert float((out.forces - plain.forces).abs().max()) <= ftol
