@@ -5,7 +5,8 @@ module here keeps its counterpart's name, function names, NamedTuple
 fields and array layouts (batch first, horizon next), and the tests feed
 both packages the same numpy inputs.
 
-Ported so far (the MPC plan path, `planner.plan`):
+Ported so far: the MPC plan path (`planner.plan`) and the batched closed
+loop (`runtime/sweep.run_batch` -> `runtime/loop.run_cycle`).
     config.py, models/dogbot.py — the JAX package's pure-Python files,
                   shared rather than copied (see _shared.py)
     ops/rotations.py, models/srb.py, gait.py — plain tensor code
@@ -13,8 +14,19 @@ Ported so far (the MPC plan path, `planner.plan`):
                   path, and the plain version of the CUDA kernel)
     ops/cuda_riccati.py + csrc/resident_ipm.cu — the resident IPM as one
                   hand-written CUDA kernel for Hopper (sm_90a)
-    planner.py — the Riccati plan path; convert.py carries JAX-package
-                  NamedTuples across as tensors
+    planner.py — the Riccati plan path
+    ops/chol.py, ops/cuda_chol.py + csrc/spd_chol.cu — the batched SPD
+                  factor / substitution: CUDA kernels, and their plain
+                  versions on the CPU
+    ops/qpsolve.py — the dense interior-point QP of the whole-body control
+    models/kinematics.py, models/rbd.py — leg kinematics and 18-DoF
+                  rigid-body dynamics in closed form
+    apf.py, foothold.py, swing.py, wbc.py — navigation, foothold selection,
+                  swing splines, the whole-body QP
+    sim/ — terrain, disturbances, penalty-contact physics
+    runtime/ — the momentum observer, the closed loop, the sweep
+    __main__.py — the `sweep` command
+    convert.py — carries JAX-package NamedTuples across as tensors
 
 Importing the package imports neither jax nor the JAX package; torch is
 imported by the modules that need it.

@@ -91,6 +91,21 @@ def resident_ipm() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def spd_chol() -> ctypes.CDLL:
+    """The batched SPD factor / substitution library (csrc/spd_chol.cu),
+    built and loaded once per process."""
+    lib = ctypes.CDLL(str(build("spd_chol", [CSRC / "spd_chol.cu"])))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.spd_factor_launch.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
+    lib.spd_factor_launch.restype = i32
+    lib.spd_sub_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
+    lib.spd_sub_launch.restype = i32
+    lib.spd_chol_max_n.argtypes = []
+    lib.spd_chol_max_n.restype = i32
+    return lib
+
+
 def resident_ipm_limits() -> tuple[int, int, int, int]:
     """(NX_MAX, NU_MAX, M_MAX, MC_MAX) compiled into the kernel."""
     vals = [ctypes.c_int() for _ in range(4)]

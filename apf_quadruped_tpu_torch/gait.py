@@ -5,7 +5,7 @@ contact-mask) phases; the MPC consumes fixed-shape per-knot stance masks,
 so gait switching changes data (a gait flag), never shapes.  The JAX
 module imports jax.numpy at its top, so its numpy stride tables are
 carried here verbatim (tests/test_torch_ops.py holds the two tables
-equal).  `phase_info` is not ported yet (ROADMAP slice B).
+equal).
 
 Leg order everywhere: (BR, BL, FL, FR).
 """
@@ -13,6 +13,7 @@ Leg order everywhere: (BR, BL, FL, FR).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
@@ -211,8 +212,10 @@ def build_gait_table() -> GaitTable:
 _TABLE = build_gait_table()
 
 
+@functools.lru_cache(maxsize=None)
 def gait_arrays(dtype=torch.float32, device=None):
-    """(durations, contacts) as tensors."""
+    """(durations, contacts) as tensors, built once per device (a copy from
+    host memory on every tick would wait for the device)."""
     return (torch.as_tensor(_TABLE.durations, dtype=dtype, device=device),
             torch.as_tensor(_TABLE.contacts, dtype=dtype, device=device))
 
@@ -232,6 +235,52 @@ def contact_state(gait_flag: torch.Tensor, t: torch.Tensor,
     c = c.expand(idx.shape + c.shape[-2:])
     return torch.gather(c, -2, idx[..., None, None].expand(
         idx.shape + (1, c.shape[-1])))[..., 0, :]
+
+
+def phase_info(gait_flag: torch.Tensor, t: torch.Tensor, cycle: torch.Tensor,
+               dtype=torch.float32) -> dict:
+    """Per-leg phase query at time t; all args broadcastable.
+
+    Returns a dict with `contact` (.., 4), the current stance mask, and
+    `t_start` / `t_end` (.., 4), the start and end of the current per-leg
+    phase, merging consecutive phases in which that leg's contact state
+    does not change (towr's per-end-effector phase durations): a leg's
+    swing runs over [t_start, t_end) whenever contact == 0.
+    """
+    durs, cons = gait_arrays(dtype, t.device)
+    flag = gait_flag.long()
+    d = durs[flag] * cycle[..., None]                  # (.., P)
+    c = cons[flag]                                     # (.., P, 4)
+    ends = torch.cumsum(d, dim=-1)
+    starts = ends - d
+    idx = (t[..., None] >= ends).sum(dim=-1).clamp(0, MAX_PHASES - 1)
+    batch = idx.shape
+    c = c.expand(batch + c.shape[-2:])
+    cur = torch.gather(c, -2, idx[..., None, None].expand(batch + (1, 4)))
+
+    # per-leg runs of equal contact: a run starts at the last phase <= p
+    # where the leg's state changed (running max) and ends at the first
+    # phase >= p after which it changes (running min, taken as the running
+    # max of the negated index over the flipped phase axis)
+    leg_c = c.transpose(-1, -2)                        # (.., 4, P)
+    pos = torch.arange(MAX_PHASES, device=t.device)
+    same = leg_c[..., 1:] == leg_c[..., :-1]
+    no = torch.zeros(leg_c.shape[:-1] + (1,), dtype=torch.bool,
+                     device=t.device)
+    prev_same = torch.cat([no, same], dim=-1)
+    next_same = torch.cat([same, no], dim=-1)
+    run_start = torch.cummax(torch.where(prev_same, -1, pos), dim=-1).values
+    neg_end = torch.where(next_same, -MAX_PHASES, -pos).flip(-1)
+    run_end = -torch.cummax(neg_end, dim=-1).values.flip(-1)
+
+    idx4 = idx[..., None, None].expand(batch + (4, 1))
+    rs = torch.gather(run_start, -1, idx4)
+    re = torch.gather(run_end, -1, idx4)
+    starts4 = starts[..., None, :].expand(leg_c.shape)
+    ends4 = ends[..., None, :].expand(leg_c.shape)
+    return {"contact": cur[..., 0, :],
+            "t_start": torch.gather(starts4, -1, rs)[..., 0],
+            "t_end": torch.gather(ends4, -1, re)[..., 0]}
 
 
 def horizon_contacts(gait_flag: torch.Tensor, t0: torch.Tensor, dt: float,

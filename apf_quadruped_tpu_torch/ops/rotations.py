@@ -13,7 +13,8 @@ import torch
 
 def _mat3(rows) -> torch.Tensor:
     """3x3 from nested lists of equally-shaped tensors -> (..., 3, 3)."""
-    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+    return torch.stack([e for r in rows for e in r], dim=-1).unflatten(
+        -1, (3, 3))
 
 
 def skew(v: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,348 @@
+"""The closed-loop controller, batched over scenarios.
+
+Port of apf_quadruped_tpu/runtime/loop.py.  One replan cycle:
+  1. robustness EWMA update + APF navigation (+ foothold selection);
+  2. one convex MPC solve over the gait horizon (planner.plan, the resident
+     IPM kernel on the card), warm-started from the previous cycle;
+  3. 400 Hz tracking: gait-phase query -> swing spline refs -> whole-body
+     QP -> torques -> physics step, with the friction-cone margin integral
+     and the momentum observer updated every tick.
+
+Every LoopState field carries the scenario axis in front.  The JAX module
+scans a single-scenario tick and vmaps it; here the tick loop and the
+cycle loop are Python loops over batched tensors, and nothing in them
+reads a value back to the host.  Gait modes (GaitConfig.mode): "trot"
+alternates trot pair A / pair B per cycle; "crawl" walks one leg at a time;
+"adaptive" switches to the crawl combo per lane from the robustness EWMA;
+the named strides of gait.NAMED_MODE_FLAGS run one flag every cycle.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .. import apf, foothold, gait, planner, swing, wbc
+from .._precision import highest_precision
+from ..config import EngineConfig
+from ..models import rbd, srb
+from ..ops.riccati import WarmStart
+from ..ops.rotations import rot_to_rpy
+from ..sim import disturbance, physics
+from ..sim import terrain as terrain_mod
+from . import observer
+
+
+class LoopState(NamedTuple):
+    sim: physics.SimState
+    apf: apf.ApfState
+    cycle_idx: torch.Tensor    # (B,) int32
+    crawling: torch.Tensor     # (B,) bool — adaptive-mode gait memory
+    # the previous cycle's MPC solution, the next solve's warm start,
+    # leg-permuted at store time for the mirrored trot pair
+    warm_u: torch.Tensor       # (B, H, 12) world-frame knot forces
+    warm_z: torch.Tensor       # (B, H, 24 [+12]) duals
+    warm_s: torch.Tensor       # (B, H, 24 [+12]) slacks
+    warm_valid: torch.Tensor   # (B,) bool
+    # (B,) int32 — the gait flag the stored solution is valid for; a cycle
+    # with another flag starts cold (a stale warm start across a gait
+    # switch is worse than cold)
+    warm_flag: torch.Tensor
+    obs: observer.ObserverState
+
+
+class CycleMetrics(NamedTuple):
+    """Per-cycle observability, each (B, ...)."""
+
+    com: torch.Tensor          # (B, 3) CoM at cycle end
+    com_err: torch.Tensor      # |com - com_des| at cycle end (xy)
+    rob_mean: torch.Tensor     # mean robustness index
+    fake_crawl: torch.Tensor   # bool
+    qp_converged: torch.Tensor  # fraction of converged WBC solves
+    mpc_converged: torch.Tensor  # bool
+    mpc_iters: torch.Tensor    # IPM iterations of the cycle's MPC solve
+    crawling: torch.Tensor     # bool — crawl combo engaged this cycle
+    slip_ticks: torch.Tensor   # fraction of ticks with any foot slipping
+    tau_max: torch.Tensor      # peak |tau| over the cycle
+    qdd_max: torch.Tensor      # peak |joint accel| commanded
+    foot_mu: torch.Tensor      # mean terrain mu under the step targets
+    track_err: torch.Tensor    # mean CoM tracking error during the cycle
+    early_td_frac: torch.Tensor  # mean share of early-touch-down legs
+    wrench_est: torch.Tensor   # (B, 6) external-wrench estimate at the end
+    wrench_peak: torch.Tensor  # peak estimated force magnitude
+
+
+def _gait_schedule(cfg: EngineConfig, st: LoopState, ast: apf.ApfState):
+    """(gait_flag (B,) int32, crawling (B,) bool, cycle seconds)."""
+    idx = st.cycle_idx
+    mode = cfg.gait.mode
+
+    def const(flag):
+        return torch.full_like(idx, flag)
+
+    if mode == "crawl":
+        return const(4), torch.ones_like(st.crawling), cfg.gait.crawl_cycle
+    if mode in gait.NAMED_MODE_FLAGS:
+        return (const(gait.NAMED_MODE_FLAGS[mode]),
+                torch.zeros_like(st.crawling), cfg.gait.fixed_cycle)
+    if mode == "adaptive":
+        # hysteresis: enter the crawl combo below crawl_enter_threshold,
+        # return to the full trot cycle above crawl_exit_threshold
+        rob_mean = ast.rob_foot.mean(dim=-1)
+        crawling = torch.where(st.crawling,
+                               rob_mean <= cfg.apf.crawl_exit_threshold,
+                               rob_mean < cfg.apf.crawl_enter_threshold)
+        return (torch.where(crawling, const(4), const(15)), crawling,
+                cfg.gait.crawl_cycle)
+    if mode != "trot":
+        raise ValueError(f"unknown gait mode {mode!r}")
+    return (torch.where(idx % 2 == 0, const(1), const(2)),
+            torch.zeros_like(st.crawling), cfg.gait.trot_cycle)
+
+
+def _take(v: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """v (B, K, ..) at per-lane index k (B,) -> (B, ..)."""
+    return v[torch.arange(v.shape[0], device=v.device), k]
+
+
+def run_cycle(cfg: EngineConfig, st: LoopState, terr: terrain_mod.Terrain,
+              target_xy: torch.Tensor,
+              dist_sched: torch.Tensor) -> tuple[LoopState, CycleMetrics]:
+    """One replan cycle for every scenario of the batch: navigate, plan,
+    track.  terr holds (B, res, res) grids, target_xy (B, 2), dist_sched
+    (B, n_events, 8).  Runs with TF32 off throughout."""
+    with highest_precision():
+        return _run_cycle_impl(cfg, st, terr, target_xy, dist_sched)
+
+
+def _run_cycle_impl(cfg: EngineConfig, st: LoopState,
+                    terr: terrain_mod.Terrain, target_xy: torch.Tensor,
+                    dist_sched: torch.Tensor):
+    sim0 = st.sim
+    dtype, dev = sim0.q.dtype, sim0.q.device
+    B = sim0.q.shape[0]
+    robot = cfg.robot
+    Hh = cfg.mpc.horizon
+
+    # ---- 1. navigation -------------------------------------------------
+    ast = apf.update_robustness(cfg.apf, st.apf)
+    feet_w = rbd.foot_positions_world(robot, sim0.p_base, sim0.R_wb, sim0.q)
+    com_w = rbd.com_position(robot, sim0.p_base, sim0.R_wb, sim0.q)
+    nav = apf.navigate(cfg.apf, ast, feet_w[..., 0:2], com_w[..., 0:2],
+                       target_xy, robot=robot)
+    gait_flag, crawling, cycle_s = _gait_schedule(cfg, st, ast)
+    cycle = torch.full((B,), cycle_s, dtype=dtype, device=dev)
+    n_ticks = int(round(cycle_s / cfg.sim.dt))
+
+    step_xy = nav.step_targets
+    if cfg.foothold.enabled:
+        step_xy = foothold.optimize(cfg.foothold, robot, terr, step_xy,
+                                    nav.com_des)
+    # foothold and CoM heights follow the terrain
+    com_des3 = torch.cat([nav.com_des, (terrain_mod.sample_height(
+        terr, nav.com_des) + robot.com_height)[..., None]], dim=-1)
+    step_targets3 = torch.cat([step_xy, (terrain_mod.sample_height(
+        terr, step_xy) + robot.foot_radius)[..., None]], dim=-1)
+
+    # ---- 2. MPC plan over the cycle ------------------------------------
+    zero_t = torch.zeros((B,), dtype=dtype, device=dev)
+    contacts_h = gait.horizon_contacts(gait_flag, zero_t, cfg.mpc.dt, Hh,
+                                       cycle, dtype=dtype)
+    feet_sched = planner.foothold_schedule(feet_w, step_targets3, contacts_h)
+    cone_rot = (terrain_mod.cone_basis(terr, feet_sched[..., 0:2])
+                if terr.h_map is not None else None)
+    rpy_now = rot_to_rpy(sim0.R_wb)
+    com0 = torch.cat([com_w[..., 0:2], (terrain_mod.sample_height(
+        terr, com_w[..., 0:2]) + robot.com_height)[..., None]], dim=-1)
+    x_ref = planner.reference_trajectory(cfg, rpy_now, com0, com_des3,
+                                         rpy_now[..., 2], cycle)
+    v_com = (rbd.com_jacobian(robot, sim0.R_wb, sim0.q)
+             @ sim0.u.unsqueeze(-1)).squeeze(-1)
+    x0 = srb.pack_state(rpy_now, com_w, sim0.u[..., 3:6], v_com)
+    warm_on = (planner.effective_backend(cfg, dev).startswith("riccati")
+               and cfg.mpc.warm_start)
+    warm = None
+    if warm_on:
+        warm = WarmStart(u=st.warm_u, z=st.warm_z, s=st.warm_s,
+                         valid=st.warm_valid & (st.warm_flag == gait_flag))
+    plan = planner.plan(cfg, x0, planner.MpcRefs(
+        contacts=contacts_h, feet_w=feet_sched, x_ref=x_ref,
+        yaw_ref=rpy_now[..., 2], cone_rot=cone_rot), warm=warm)
+
+    # stash this solve for the next cycle's warm start: consecutive trot
+    # cycles mirror the swing pair (flags 1 <-> 2), so the stored solution
+    # is leg-permuted BR<->BL, FL<->FR; the other modes reuse one schedule
+    if warm_on:
+        if cfg.gait.mode == "trot":
+            perm = [1, 0, 3, 2]
+            flag_for = 3 - gait_flag
+        else:
+            perm = [0, 1, 2, 3]
+            flag_for = gait_flag
+        u_next = plan.forces[:, :, perm, :].reshape(B, Hh, 12)
+
+        def permute_rows(v):
+            # the first 24 rows are the per-leg pyramid (4 legs x 6) and
+            # move with the legs; extra (base_acc) rows are leg-agnostic
+            v = v.reshape(B, Hh, -1)
+            pyr = v[..., :24].reshape(B, Hh, 4, 6)[:, :, perm, :]
+            return torch.cat([pyr.reshape(B, Hh, 24), v[..., 24:]], dim=-1)
+        warm_next = (u_next, permute_rows(plan.sol.z),
+                     permute_rows(plan.sol.s),
+                     torch.ones_like(st.warm_valid), flag_for)
+    else:
+        warm_next = (st.warm_u, st.warm_z, st.warm_s, st.warm_valid,
+                     st.warm_flag)
+
+    # ---- 3. 400 Hz tracking -------------------------------------------
+    liftoff_feet = feet_w
+    # knot states including t = 0 for first-order-hold references
+    states_knots = torch.cat([x0[:, None], plan.states], dim=1)
+    g_vec = torch.tensor([0.0, 0.0, -srb.GRAVITY], dtype=dtype, device=dev)
+    zeros3 = torch.zeros((B, 3), dtype=dtype, device=dev)
+    sim_st, obs = sim0, st.obs
+    td_flag = torch.zeros((B, 4), dtype=torch.bool, device=dev)
+    td_pos = liftoff_feet
+    prev_contact = torch.zeros((B, 4), dtype=torch.bool, device=dev)
+    trace = {k: [] for k in ("conv", "slip", "taumax", "track", "td",
+                             "qdd", "wpeak")}
+    # knot coordinate of tick k = k sim.dt / mpc.dt, with the ratio folded
+    # in the working precision: XLA folds the JAX module's t / mpc.dt so,
+    # and on a knot boundary (k = 30 in float64, k = 50 in float32) the
+    # truncation below then picks the knot the JAX package picks
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    knot_ratio = float(np_dtype(cfg.sim.dt)
+                       * (np_dtype(1.0) / np_dtype(cfg.mpc.dt)))
+    for k in range(n_ticks):
+        t = torch.full((B,), k, dtype=dtype, device=dev) * cfg.sim.dt
+        info = gait.phase_info(gait_flag, t, cycle, dtype=dtype)
+        contact = info["contact"]
+        dur = torch.clamp(info["t_end"] - info["t_start"], min=1e-3)
+        tau_ph = (t[..., None] - info["t_start"]) / dur
+        sw_pos, sw_vel, sw_acc = swing.swing_ref(
+            liftoff_feet, step_targets3, cfg.mpc.swing_height, tau_ph, dur)
+
+        if cfg.gait.early_td or terr.h_map is not None:
+            feet_now = rbd.foot_positions_world(robot, sim_st.p_base,
+                                                sim_st.R_wb, sim_st.q)
+        if cfg.gait.early_td:
+            # early touch-down: a swing foot with measured contact in the
+            # last early_td_window of its swing latches td_flag, freezes
+            # its swing ref at the touch-down point and counts as stance
+            near_end = t[..., None] > info["t_end"] - cfg.gait.early_td_window
+            is_swing = contact < 0.5
+            touched = prev_contact & is_swing & near_end
+            newly = touched & ~td_flag
+            td_pos = torch.where(newly[..., None], feet_now, td_pos)
+            td_flag = (td_flag | touched) & is_swing
+            latched = td_flag[..., None]
+            sw_pos = torch.where(latched, td_pos, sw_pos)
+            sw_vel = torch.where(latched, torch.zeros_like(sw_vel), sw_vel)
+            sw_acc = torch.where(latched, torch.zeros_like(sw_acc), sw_acc)
+            contact = torch.maximum(contact, td_flag.to(dtype))
+
+        # MPC refs: first-order hold of the state between knots, zero-order
+        # hold of the forces
+        tk = torch.full((B,), k, dtype=dtype, device=dev) * knot_ratio
+        k0 = torch.clamp(tk.to(torch.int32), 0, Hh - 1).to(torch.int64)
+        wk = torch.clamp(tk - k0.to(dtype), 0.0, 1.0)[..., None]
+        xk = ((1.0 - wk) * _take(states_knots, k0)
+              + wk * _take(states_knots, k0 + 1))
+        com_acc = _take(plan.forces, k0).sum(dim=-2) / robot.mass + g_vec
+
+        ref = wbc.WbcRefs(com_pos=xk[..., 3:6], com_vel=xk[..., 9:12],
+                          com_acc=com_acc, rpy=xk[..., 0:3],
+                          omega=xk[..., 6:9], omega_dot=zeros3,
+                          swing_pos=sw_pos, swing_vel=sw_vel,
+                          swing_acc=sw_acc)
+        wst = wbc.WbcState(p_base=sim_st.p_base, R_wb=sim_st.R_wb,
+                           q=sim_st.q, u=sim_st.u, contact=contact,
+                           crawl=crawling)
+        if terr.h_map is not None:
+            wst = wst._replace(cone_rot=terrain_mod.cone_basis(
+                terr, feet_now[..., 0:2]))
+        out = wbc.solve(cfg, wst, ref)
+
+        fd, ff = disturbance.eval_links(dist_sched, sim_st.t)
+        sim_st, cinfo = physics.step(cfg, sim_st, out.tau, terr, f_dist=fd,
+                                     f_feet=ff)
+        ast = apf.accumulate_margin(cfg.apf, ast, cinfo.forces, cfg.sim.dt)
+        obs = observer.update_from_dyn(
+            obs, out.M, out.h_bias, out.Jc, sim_st.u, cinfo.forces_avg,
+            cfg.sim.dt, cfg.observer.gain,
+            mdot_u=observer.mdot_u(cfg, sim_st.R_wb, sim_st.q, sim_st.u))
+        prev_contact = cinfo.in_contact
+
+        com_now = rbd.com_position(robot, sim_st.p_base, sim_st.R_wb,
+                                   sim_st.q)
+        trace["conv"].append(out.sol.converged)
+        trace["slip"].append(cinfo.slipping.any(dim=-1))
+        trace["taumax"].append(out.tau.abs().amax(dim=-1))
+        trace["track"].append(torch.linalg.vector_norm(com_now - xk[..., 3:6],
+                                                       dim=-1))
+        trace["td"].append(td_flag.to(dtype).mean(dim=-1))
+        trace["qdd"].append(out.udot[..., 6:18].abs().amax(dim=-1))
+        trace["wpeak"].append(torch.linalg.vector_norm(obs.w[..., 0:3],
+                                                       dim=-1))
+    tr = {k: torch.stack(v, dim=-1) for k, v in trace.items()}
+
+    com_end = rbd.com_position(robot, sim_st.p_base, sim_st.R_wb, sim_st.q)
+    metrics = CycleMetrics(
+        com=com_end,
+        com_err=torch.linalg.vector_norm(com_end[..., 0:2] - nav.com_des,
+                                         dim=-1),
+        rob_mean=nav.rob_mean, fake_crawl=nav.fake_crawl,
+        qp_converged=tr["conv"].to(dtype).mean(dim=-1),
+        mpc_converged=plan.sol.converged,
+        mpc_iters=plan.sol.iters.to(torch.int32),
+        crawling=crawling,
+        slip_ticks=tr["slip"].to(dtype).mean(dim=-1),
+        tau_max=tr["taumax"].amax(dim=-1),
+        qdd_max=tr["qdd"].amax(dim=-1),
+        foot_mu=terrain_mod.sample_mu(terr, step_xy).mean(dim=-1),
+        track_err=tr["track"].mean(dim=-1),
+        early_td_frac=tr["td"].mean(dim=-1),
+        wrench_est=obs.w, wrench_peak=tr["wpeak"].amax(dim=-1))
+    return LoopState(sim=sim_st, apf=ast, cycle_idx=st.cycle_idx + 1,
+                     crawling=crawling, warm_u=warm_next[0],
+                     warm_z=warm_next[1], warm_s=warm_next[2],
+                     warm_valid=warm_next[3], warm_flag=warm_next[4],
+                     obs=obs), metrics
+
+
+def run(cfg: EngineConfig, st: LoopState, terr: terrain_mod.Terrain,
+        target_xy: torch.Tensor, dist_sched: torch.Tensor,
+        n_cycles: int) -> tuple[LoopState, CycleMetrics]:
+    """n_cycles replan cycles; metrics stacked (B, n_cycles, ...)."""
+    per_cycle = []
+    for _ in range(n_cycles):
+        st, m = run_cycle(cfg, st, terr, target_xy, dist_sched)
+        per_cycle.append(m)
+    return st, CycleMetrics(*(torch.stack(v, dim=1)
+                              for v in zip(*per_cycle)))
+
+
+def init(cfg: EngineConfig, batch: int = 1, xy=(0.0, 0.0), yaw: float = 0.0,
+         dtype=torch.float32, device=None) -> LoopState:
+    """`batch` identical LoopStates at rest at the spawn pose."""
+    Hh = cfg.mpc.horizon
+    nrow = 24 + (12 if cfg.mpc.base_acc else 0)   # pyramid (+ base_acc) rows
+    b = (batch,)
+    opts = dict(dtype=dtype, device=device)
+    zeros6 = torch.zeros(b + (6,), **opts)
+    return LoopState(
+        sim=physics.initial_state(cfg, xy, yaw, dtype, b, device),
+        apf=apf.init_state(b, dtype, device),
+        cycle_idx=torch.zeros(b, dtype=torch.int32, device=device),
+        crawling=torch.full(b, cfg.gait.mode == "crawl", dtype=torch.bool,
+                            device=device),
+        warm_u=torch.zeros(b + (Hh, 12), **opts),
+        warm_z=torch.zeros(b + (Hh, nrow), **opts),
+        warm_s=torch.zeros(b + (Hh, nrow), **opts),
+        warm_valid=torch.zeros(b, dtype=torch.bool, device=device),
+        warm_flag=torch.zeros(b, dtype=torch.int32, device=device),
+        # spawn is at rest, so the momentum offset p0 = (M u)[0:6] is 0
+        obs=observer.ObserverState(y_int=zeros6, w=zeros6.clone(),
+                                   p0=zeros6.clone()))

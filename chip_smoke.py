@@ -16,7 +16,21 @@ Phases; each raises on failure, so any failure exits non-zero:
      SolverConfig()) through backend "auto", a warm replan, a
      base_box + base_acc plan; the kernel's launch count must rise;
   6. timing: plan solves/s with the kernel and with the plain version, and
-     the kernel's own time against the plain solve, at B=2048, H=20.
+     the kernel's own time against the plain solve, at B=2048, H=20;
+  7. build: the SPD factor/substitution kernels (csrc/spd_chol.cu), built
+     with nvcc together with the resident IPM in phase 2 (timed);
+  8. the SPD kernels vs their plain versions (ops.chol) on the card at
+     n in {18, 30, 64}, k in {1, 30}, B in {1, 64, 1030}, a lane that is
+     not positive definite, and solve_qp on WBC-shaped QPs (n=30, p=30,
+     m=68, B=1024) through the kernels vs the plain route (CPU);
+  9. the closed loop: (a) the JAX suite's health case (flat ground, target
+     (0, 1), 4 cycles, B=8), (b) the main path, sweep.run_batch at the
+     CLI's sweep configuration (B=64, H=20, 128^2 terrain, 2 cycles), with
+     the kernels' launch counts, (c) the loop against the JAX package's
+     float32 run (tests/data/loop_golden.npz);
+ 10. timing: closed-loop scenario-ticks/s, a torch.profiler breakdown of
+     the tick (launches, share of device time in the SPD kernels, device
+     idle share), the SPD kernels against their plain versions.
 The last two lines are the kernels' JSON record and the device JSON line.
 Uses no JAX: the card's machine has none.
 """
@@ -25,6 +39,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -33,6 +48,324 @@ ROOT = Path(__file__).resolve().parent
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
+
+
+def print_ptxas(kernels, name):
+    for log in sorted(kernels.BUILD_ROOT.glob(f"{name}-*/build.log")):
+        for line in log.read_text().splitlines():
+            if "registers" in line or "stack frame" in line:
+                print(f"[build] {name} ptxas: {line.strip()}")
+
+def closed_loop(dev, card, build_spd_s):
+    """Phases 7-10; returns the SPD kernels' JSON records."""
+    import numpy as np
+    import torch
+
+    from apf_quadruped_tpu_torch import _kernels, convert
+    from apf_quadruped_tpu_torch.config import (EngineConfig, SolverConfig,
+                                                WbcConfig)
+    from apf_quadruped_tpu_torch.ops import chol, cuda_chol, cuda_riccati
+    from apf_quadruped_tpu_torch.ops import qpsolve
+    from apf_quadruped_tpu_torch.runtime import loop, sweep
+    from apf_quadruped_tpu_torch.sim import terrain
+
+    f32 = torch.float32
+    rng = np.random.default_rng(0)
+
+    # ---- 7. build --------------------------------------------------------
+    print(f"[build] spd_chol built and loaded in {build_spd_s:.1f} s "
+          f"(alongside resident_ipm)", flush=True)
+    print_ptxas(_kernels, "spd_chol")
+
+    # ---- 8. SPD kernels vs plain on the card ------------------------------
+    # gate: L, dinv and X within 1e-5 of the plain version (cuSOLVER
+    # potrf + two triangular solves), relative to the largest entry, on
+    # well-conditioned SPD input (H = A A' + n I): both are backward
+    # stable, so they differ by ~n float32 roundings (~1e-6 at n = 64)
+    def spd(B, n):
+        A = rng.normal(size=(B, n, n))
+        return A @ A.transpose(0, 2, 1) + n * np.eye(n)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    err_f = err_s = 0.0
+    for n in (18, 30, 64):
+        for B in (1, 64, 1030):
+            H = torch.as_tensor(spd(B, n), dtype=f32, device=dev)
+            L, d = cuda_chol.chol_factor(H)
+            Lp, dp = chol.plain_factor(H)
+            for k in (1, 30):
+                r = torch.as_tensor(rng.normal(size=(B, n, k)), dtype=f32,
+                                    device=dev)
+                X = cuda_chol.chol_sub(L, d, r)
+                Xp = chol.plain_solve(Lp, dp, r)
+                torch.cuda.synchronize()
+                eL, ed, eX = rel(L, Lp), rel(d, dp), rel(X, Xp)
+                err_f = max(err_f, float((L - Lp).abs().max()),
+                            float((d - dp).abs().max()))
+                err_s = max(err_s, float((X - Xp).abs().max()))
+                print(f"[spd] n={n} B={B} k={k}: rel err L {eL:.2e}, dinv "
+                      f"{ed:.2e}, X {eX:.2e} (gate 1e-5)", flush=True)
+                check(max(eL, ed, eX) <= 1e-5, f"spd kernels n={n} B={B} "
+                      f"k={k} within 1e-5 of the plain version")
+                check(bool((torch.triu(L, 1) == 0).all()),
+                      "L has exact zeros above the diagonal")
+    H = torch.as_tensor(spd(5, 30), dtype=f32, device=dev)
+    H[2, 3, 3] = -5.0                               # lane 2 is not SPD
+    L, d = cuda_chol.chol_factor(H)
+    Lp, dp = chol.plain_factor(H)
+    X = cuda_chol.chol_sub(L, d, torch.ones(5, 30, 1, device=dev))
+    ok = [0, 1, 3, 4]
+    nan_k = bool(L[2].isnan().all() & d[2].isnan().all()
+                 & X[2].isnan().all())
+    nan_p = bool(Lp[2].isnan().all() & dp[2].isnan().all())
+    others = bool(L[ok].isfinite().all() & X[ok].isfinite().all())
+    print(f"[spd] non-SPD lane: kernel L/dinv/X all NaN {nan_k}, plain "
+          f"L/dinv all NaN {nan_p}, other lanes finite {others}", flush=True)
+    check(nan_k and nan_p, "a non-SPD lane comes back NaN from the kernel "
+          "and the plain version")
+    check(others, "the other lanes stay finite")
+
+    # solve_qp on WBC-shaped QPs through the kernels vs the plain route:
+    # tests/test_qpsolve.py's generator, n=30, m=68, p=30 with the WBC's
+    # masks (18 of 30 equality rows, 12 of 20 pyramid rows), production
+    # SolverConfig() in float32.  Gates: converged/iters agree on >= 99.5%
+    # of lanes; where they agree, x within 1e-3 (1 + |x|max) on >= 99.5%:
+    # a solve that stops at reltol 1e-2 passes float32 rounding of the
+    # factorizations on amplified by the KKT conditioning
+    Bq, n, m, p = 1024, 30, 68, 30
+    Mq = rng.normal(size=(Bq, n, n))
+    P = np.einsum("bij,bkj->bik", Mq, Mq) / n + 0.5 * np.eye(n)
+    G = rng.normal(size=(Bq, m, n))
+    x0 = rng.normal(size=(Bq, n)) * 0.1
+    Aq = rng.normal(size=(Bq, p, n))
+    data = dict(P=P, q=rng.normal(size=(Bq, n)), G=G,
+                h=np.einsum("bmn,bn->bm", G, x0)
+                + rng.uniform(0.1, 1.0, (Bq, m)),
+                A=Aq, b=np.einsum("bpn,bn->bp", Aq, x0),
+                eq_mask=np.concatenate([np.ones((Bq, 18)),
+                                        np.zeros((Bq, 12))], axis=1),
+                ineq_mask=np.concatenate([
+                    (rng.uniform(size=(Bq, 20)) < 0.6).astype(float),
+                    np.ones((Bq, 48))], axis=1))
+    data = {k: v.astype(np.float32) for k, v in data.items()}
+    before = (cuda_chol.chol_factor.launches, cuda_chol.chol_sub.launches)
+    sol_k = qpsolve.solve_qp(convert.qp_data(data, dev), SolverConfig())
+    sol_p = qpsolve.solve_qp(convert.qp_data(data, "cpu"), SolverConfig())
+    check(cuda_chol.chol_factor.launches > before[0]
+          and cuda_chol.chol_sub.launches > before[1],
+          "solve_qp on CUDA tensors launched the SPD kernels")
+    conv_k, conv_p = sol_k.converged.cpu(), sol_p.converged
+    agree = (conv_k == conv_p) & (sol_k.iters.cpu() == sol_p.iters)
+    dx = (sol_k.x.cpu() - sol_p.x).abs().amax(dim=-1)[agree]
+    xs = 1.0 + float(sol_p.x.abs().max())
+    within = float((dx <= 1e-3 * xs).float().mean())
+    print(f"[qp] WBC-shaped solve_qp B={Bq}: converged "
+          f"{float(conv_k.float().mean()):.4f} (plain "
+          f"{float(conv_p.float().mean()):.4f}), converged/iters agree on "
+          f"{float(agree.float().mean()):.4f} of lanes, max|dx| "
+          f"{float(dx.max()):.3g} (|x|max {xs - 1:.3g}), within gate on "
+          f"{within:.4f}", flush=True)
+    check(float(agree.float().mean()) >= 0.995, "solve_qp kernel route "
+          "agrees with the plain route on converged/iters")
+    check(within >= 0.995, "solve_qp kernel route x within tolerance")
+
+    # ---- 9. the closed loop -----------------------------------------------
+    def finite(tree):
+        return all(bool(torch.isfinite(v.float()).all()) for v in tree
+                   if isinstance(v, torch.Tensor))
+
+    # (a) tests/test_loop.py's health case: the production config
+    cfg_h = EngineConfig(solver=SolverConfig(),
+                         wbc=WbcConfig(slack_weight_trot=1e6))
+    Bh = 8
+    t0 = time.perf_counter()
+    st, m = loop.run(cfg_h, loop.init(cfg_h, Bh, device=dev),
+                     terrain.flat(cfg_h.sim, batch=(Bh,), device=dev),
+                     torch.tensor([[0.0, 1.0]] * Bh, device=dev),
+                     torch.zeros((Bh, 1, 8), device=dev), 4)
+    torch.cuda.synchronize()
+    com_y = m.com[:, -1, 1]
+    print(f"[loop] health case B={Bh}, 4 cycles in "
+          f"{time.perf_counter() - t0:.1f} s: CoM y min "
+          f"{float(com_y.min()):.4f} (> 0.15), R22 min "
+          f"{float(st.sim.R_wb[:, 2, 2].min()):.5f} (> 0.98), MPC converged "
+          f"{bool(m.mpc_converged.all())}, qp_converged mean "
+          f"{float(m.qp_converged.mean()):.4f} (> 0.9), track_err mean "
+          f"{float(m.track_err.mean()):.5f} m (< 0.03), tau max "
+          f"{float(m.tau_max.max()):.3f} (<= 60)", flush=True)
+    check(finite(st.sim) and finite(m), "health case finite")
+    check(float(com_y.min()) > 0.15, "health case walks forward")
+    check(float(st.sim.R_wb[:, 2, 2].min()) > 0.98, "health case upright")
+    check(bool(m.mpc_converged.all()), "health case MPC converged")
+    check(float(m.qp_converged.mean()) > 0.9, "health case WBC converged")
+    check(float(m.track_err.mean()) < 0.03, "health case tracking")
+    check(float(m.tau_max.max()) <= 60.0 + 1e-4, "health case torque limit")
+
+    # (b) the main path: sweep.run_batch at the CLI's sweep configuration
+    cfg = sweep.cli_config()
+    Bs, cycles = 64, 2
+    native = sweep.native().available()
+    scn = sweep.random_scenarios(cfg, Bs, seed=0, device=dev)
+    print(f"[loop] scenarios from the "
+          f"{'native C++' if native else 'numpy'} generator", flush=True)
+    ticks = Bs * cycles * int(round(cfg.gait.trot_cycle / cfg.sim.dt))
+    cuda_chol.chol_factor.launches = cuda_chol.chol_sub.launches = 0
+    cuda_riccati.solve_stage_qp_resident.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sweep.run_batch(cfg, scn, cycles)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"spd_chol_factor": cuda_chol.chol_factor.launches,
+                "spd_chol_sub": cuda_chol.chol_sub.launches,
+                "resident_ipm": cuda_riccati.solve_stage_qp_resident.launches}
+    print(f"[loop] run_batch B={Bs}, {cycles} cycles in {wall:.1f} s; "
+          f"kernel launches {launches}", flush=True)
+    mpc_conv = float(res.metrics.mpc_converged.float().mean())
+    print(f"[loop] fell {int(res.fell.sum())}/{Bs}, goal_dist mean "
+          f"{float(res.goal_dist.mean()):.4f} m, slip_frac mean "
+          f"{float(res.slip_frac.mean()):.4f}, qp_converged mean "
+          f"{float(res.qp_converged.mean()):.4f} (> 0.9), MPC converged on "
+          f"{mpc_conv:.4f} of (lane, cycle) (>= 0.99), upright min "
+          f"{float(res.upright.min()):.4f}", flush=True)
+    check(finite(res) and finite(res.metrics), "run_batch outputs finite")
+    check(float(res.qp_converged.mean()) > 0.9, "run_batch WBC converged")
+    check(mpc_conv >= 0.99, "run_batch MPC converged")
+    check(all(v > 0 for v in launches.values()),
+          "the main path launched every kernel")
+
+    # (c) against the JAX package's float32 loop (B=4, one cycle).  Gate
+    # per leaf: |port - JAX f32| <= 5 |JAX f32 - JAX f64| + 1e-4 (1 +
+    # |JAX f64|max): the port's float32 and the JAX package's float32 are
+    # two float32 roundings of one float64 trajectory, and over 200 ticks
+    # of stiff penalty contact their spread is the spread between float32
+    # and float64 (up to 1e-3 m of CoM here), not float32 epsilon
+    with np.load(ROOT / "tests" / "data" / "loop_golden.npz") as f:
+        g = {k: f[k] for k in f.files}
+    scn_g = convert.unflatten(g, "scn", sweep.Scenario, dev)
+    scn_g = sweep.Scenario(*(v.to(f32) for v in scn_g))
+    st_g, m_g = sweep.step_batch(cfg, scn_g, sweep.init_batch(cfg, scn_g), 1)
+    worst = (0.0, "")
+    for prefix, tree in (("state", st_g), ("metrics", m_g)):
+        for key in [k for k in g if k.startswith(f"f32.{prefix}.")]:
+            obj = tree
+            for part in key.split(".")[2:]:
+                obj = getattr(obj, part)
+            port = convert.to_numpy(obj).astype(np.float64)
+            ref32 = g[key].astype(np.float64)
+            ref64 = g["f64" + key[3:]].astype(np.float64)
+            diff = float(np.abs(port - ref32).max())
+            gate = (5.0 * float(np.abs(ref32 - ref64).max())
+                    + 1e-4 * (1.0 + float(np.abs(ref64).max())))
+            if g[key].dtype.kind in "iu":
+                gate = max(gate, 1.0)     # an MPC iteration count may flip
+            worst = max(worst, (diff / gate, key))
+            check(diff <= gate, f"{key}: port vs JAX float32 {diff:.3g} "
+                  f"> gate {gate:.3g}")
+    print(f"[loop] vs JAX float32 golden: every leaf within its gate, "
+          f"worst {worst[1]} at {worst[0]:.3f} of its gate", flush=True)
+
+    # ---- 10. timing ---------------------------------------------------------
+    print(f"[time] {card}: closed loop B={Bs}: {ticks / wall:.1f} "
+          f"scenario-ticks/s, {1e3 * wall / (ticks / Bs):.2f} ms per tick "
+          f"(run_batch, {cycles} cycles, host clock)", flush=True)
+    # the tick under torch.profiler: two short cycles (10 and 20 ticks, the
+    # same tick as the main path's), launches per tick from the difference
+    from torch.profiler import ProfilerActivity, profile
+
+    def profiled(n_ticks):
+        c = cfg.replace(gait=cfg.gait.__class__(
+            mode="trot", trot_cycle=n_ticks * cfg.sim.dt))
+        st0 = sweep.init_batch(c, scn)
+        sweep.step_batch(c, scn, st0, 1)                       # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            sweep.step_batch(c, scn, st0, 1)
+            torch.cuda.synchronize()
+            window = time.perf_counter() - t
+        ka = prof.key_averages()
+        launch = sum(e.count for e in ka if e.key == "cudaLaunchKernel")
+        on_dev = [e for e in ka
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_us = sum(e.self_device_time_total for e in on_dev)
+        spd_us = sum(e.self_device_time_total for e in on_dev
+                     if "spd_factor" in e.key or "spd_sub" in e.key)
+        return launch, dev_us, spd_us, window
+
+    l10, _, _, _ = profiled(10)
+    l20, d20, s20, w20 = profiled(20)
+    per_tick = (l20 - l10) / 10
+    if d20 > 0:
+        shares = (f"SPD kernels {100 * s20 / d20:.2f}% of device time; "
+                  f"device busy {d20 / 1e3:.3f} of {1e3 * w20:.3f} ms, idle "
+                  f"{100 * (1 - d20 / 1e6 / w20):.2f}%")
+    else:
+        shares = "device time not measured (the profiler saw none)"
+    print(f"[time] {card}: profiled tick B={Bs}: {per_tick:.0f} kernel "
+          f"launches a tick ({l20} in a 20-tick cycle, {l10} in a 10-tick "
+          f"one); {shares} (20-tick cycle under the profiler); device busy "
+          f"{d20 / 20e3:.3f} ms a tick against {1e3 * wall / (ticks / Bs):.2f}"
+          f" ms a tick unprofiled", flush=True)
+
+    # the kernels against their plain versions: CUDA events over 50
+    # back-to-back calls (at these sizes the device waits for the host's
+    # issue, so this is the call's cost to a caller), and the device time
+    # of the call's kernels under the profiler (the kernels' own cost)
+    def call_ms(fn, reps=50):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev_us = sum(e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+        return start.elapsed_time(end) / reps, dev_us / 1e3 / reps
+
+    times = {}
+    n = 30
+    for B in (64, 1024):
+        H = torch.as_tensor(spd(B, n), dtype=f32, device=dev)
+        F = cuda_chol.chol_factor(H)
+        Fp = chol.plain_factor(H)
+        times[("factor", B, 0)] = (call_ms(lambda: cuda_chol.chol_factor(H)),
+                                   call_ms(lambda: chol.plain_factor(H)))
+        for k in (1, 30):
+            r = torch.as_tensor(rng.normal(size=(B, n, k)), dtype=f32,
+                                device=dev)
+            times[("sub", B, k)] = (
+                call_ms(lambda: cuda_chol.chol_sub(*F, r)),
+                call_ms(lambda: chol.plain_solve(*Fp, r)))
+    for (kind, B, k), ((ms, dms), (pms, pdms)) in times.items():
+        print(f"[time] {card}: spd {kind} B={B} n={n}"
+              f"{f' k={k}' if k else ''}: device time a call, kernel "
+              f"{dms:.4f} ms, plain {pdms:.4f} ms; a call by CUDA events "
+              f"(host-bound), kernel {ms:.4f} ms, plain {pms:.4f} ms "
+              f"(means of 50)", flush=True)
+
+    src = "apf_quadruped_tpu_torch/csrc/spd_chol.cu"
+    return [
+        {"name": "spd_chol_factor", "route": "cuda", "source": src,
+         "replaces": "apf_quadruped_tpu/ops/pallas_chol.py:130",
+         "launches": launches["spd_chol_factor"], "max_abs_err": err_f,
+         "ms": times[("factor", 64, 0)][0][1],
+         "plain_ms": times[("factor", 64, 0)][1][1]},
+        {"name": "spd_chol_sub", "route": "cuda", "source": src,
+         "replaces": "apf_quadruped_tpu/ops/pallas_chol.py:158",
+         "launches": launches["spd_chol_sub"], "max_abs_err": err_s,
+         "ms": times[("sub", 64, 1)][0][1],
+         "plain_ms": times[("sub", 64, 1)][1][1]}]
 
 
 def main():
@@ -58,15 +391,20 @@ def main():
           f"{torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}; nvidia-smi: {card}", flush=True)
 
-    # ---- 2. build -------------------------------------------------------
+    # ---- 2. build (and 7: both libraries with nvcc at once) -------------
+    def timed(load):
+        t = time.perf_counter()
+        load()
+        return time.perf_counter() - t
+
     t0 = time.perf_counter()
-    _kernels.resident_ipm()
-    print(f"[build] resident_ipm built and loaded in "
+    with ThreadPoolExecutor(2) as pool:
+        builds = {name: pool.submit(timed, getattr(_kernels, name))
+                  for name in ("resident_ipm", "spd_chol")}
+        build_s = {name: f.result() for name, f in builds.items()}
+    print(f"[build] resident_ipm and spd_chol built in parallel in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for log in sorted(_kernels.BUILD_ROOT.glob("resident_ipm-*/build.log")):
-        for line in log.read_text().splitlines():
-            if "registers" in line or "stack frame" in line:
-                print(f"[build] ptxas: {line.strip()}")
+    print_ptxas(_kernels, "resident_ipm")
 
     # ---- 3. kernel vs plain on the card -------------------------------------
     cfg_t = SolverConfig(iters=15, reltol=1e-4, abstol=1e-4,
@@ -258,12 +596,14 @@ def main():
     print(f"[time] {card}: stage-QP solve B={B} H={H}: kernel {ms_k:.3f} ms, "
           f"plain {ms_p:.3f} ms (CUDA events)", flush=True)
 
+    chol = closed_loop(dev, card, build_s["spd_chol"])
+
     print(json.dumps({"kernels": [{
         "name": "resident_ipm", "route": "cuda",
         "source": "apf_quadruped_tpu_torch/csrc/resident_ipm.cu",
         "replaces": "apf_quadruped_tpu/ops/pallas_riccati.py:551",
         "launches": launches, "max_abs_err": max_err, "ms": ms_k,
-        "plain_ms": ms_p}]}))
+        "plain_ms": ms_p}] + chol}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,6 @@
-"""The CUDA resident IPM kernel against its plain version, on the card.
+"""The CUDA kernels against their plain versions, on the card: the
+resident IPM (csrc/resident_ipm.cu) and the SPD factor / substitution
+(csrc/spd_chol.cu).
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no JAX (the GPU machine has none) and takes its seed from its own
@@ -169,3 +171,141 @@ def test_plan_auto_runs_the_kernel(dev):
     assert bool(out.sol.converged.all())
     ftol = 1e-3 * max(1.0, float(plain.forces.abs().max()))
     assert float((out.forces - plain.forces).abs().max()) <= ftol
+
+
+# ---------------------------------------------------------------------------
+# the SPD factor / substitution kernels (csrc/spd_chol.cu) against their
+# plain versions (ops/chol.py: cholesky_ex + triangular solves, here on the
+# card).  Gate: 1e-5 relative to the largest entry on well-conditioned SPD
+# input (A A' + n I), a few float32 roundings of n-term sums.
+# ---------------------------------------------------------------------------
+
+from apf_quadruped_tpu_torch.ops import chol, cuda_chol  # noqa: E402
+from apf_quadruped_tpu_torch.ops import qpsolve  # noqa: E402
+
+
+def _spd(rng, B, n, dev):
+    A = rng.normal(size=(B, n, n))
+    return torch.as_tensor(A @ A.transpose(0, 2, 1) + n * np.eye(n),
+                           dtype=torch.float32, device=dev)
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+@pytest.mark.parametrize("n", [18, 30, 64])
+@pytest.mark.parametrize("B", [1, 64, 1030])
+@pytest.mark.parametrize("k", [1, 30])
+def test_spd_kernels_match_plain(rng, dev, n, B, k):
+    H = _spd(rng, B, n, dev)
+    r = torch.as_tensor(rng.normal(size=(B, n, k)), dtype=torch.float32,
+                        device=dev)
+    before = (cuda_chol.chol_factor.launches, cuda_chol.chol_sub.launches)
+    L, d = chol.spd_factor(H)
+    X = chol.spd_solve((L, d), r)
+    assert (cuda_chol.chol_factor.launches, cuda_chol.chol_sub.launches) \
+        == (before[0] + 1, before[1] + 1)
+    Lp, dp = chol.plain_factor(H)
+    Xp = chol.plain_solve(Lp, dp, r)
+    assert _rel(L, Lp) <= 1e-5 and _rel(d, dp) <= 1e-5
+    assert _rel(X, Xp) <= 1e-5
+    assert bool((torch.triu(L, 1) == 0).all())
+    # a vector right-hand side takes the same kernel, as k = 1
+    assert torch.equal(chol.spd_solve((L, d), r[..., 0]),
+                       chol.spd_solve((L, d), r[..., :1])[..., 0])
+
+
+def test_spd_kernels_nan_lane(rng, dev):
+    """A matrix that is not positive definite comes back NaN, all of it,
+    as from the plain version; the other lanes are untouched."""
+    H = _spd(rng, 6, 30, dev)
+    H[4, 10, 10] = -1.0
+    L, d = chol.spd_factor(H)
+    X = chol.spd_solve((L, d), torch.ones(6, 30, device=dev))
+    Lp, dp = chol.plain_factor(H)
+    for t in (L[4], d[4], X[4], Lp[4], dp[4]):
+        assert bool(t.isnan().all())
+    ok = [0, 1, 2, 3, 5]
+    assert bool(L[ok].isfinite().all() & X[ok].isfinite().all())
+    assert _rel(L[ok], Lp[ok]) <= 1e-5
+
+
+def test_spd_kernels_batch_shapes_and_strides(rng, dev):
+    """Unbatched and multi-axis batches, and non-contiguous inputs, give
+    the kernel on a contiguous (B, n, n) batch's answer."""
+    H = _spd(rng, 12, 18, dev)
+    r = torch.as_tensor(rng.normal(size=(12, 18, 5)), dtype=torch.float32,
+                        device=dev)
+    L, d = chol.spd_factor(H)
+    X = chol.spd_solve((L, d), r)
+    L1, d1 = chol.spd_factor(H[3])
+    assert torch.equal(L1, L[3]) and torch.equal(d1, d[3])
+    L2, d2 = chol.spd_factor(H.reshape(3, 4, 18, 18))
+    assert torch.equal(L2.reshape(12, 18, 18), L)
+    assert torch.equal(chol.spd_solve((L2, d2), r.reshape(3, 4, 18, 5))
+                       .reshape(12, 18, 5), X)
+    # transposed (H is symmetric) and strided right-hand sides
+    Lt, dt = chol.spd_factor(H.transpose(-1, -2))
+    assert torch.equal(Lt, L) and torch.equal(dt, d)
+    wide = torch.zeros(12, 18, 10, device=dev)
+    wide[..., ::2] = r
+    assert torch.equal(chol.spd_solve((L, d), wide[..., ::2]), X)
+
+
+def test_spd_kernels_reject_what_they_do_not_take(rng, dev):
+    with pytest.raises(ValueError, match="n <= 64"):
+        chol.spd_factor(_spd(rng, 2, 65, dev))
+    with pytest.raises(TypeError, match="float32"):
+        chol.spd_factor(_spd(rng, 2, 8, dev).double())
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_chol.chol_factor(_spd(rng, 2, 8, "cpu"))
+
+
+def test_solve_qp_kernel_route(rng, dev):
+    """solve_qp on CUDA tensors goes through the SPD kernels and agrees with
+    the plain route (CPU tensors) on WBC-shaped QPs."""
+    B, n, m, p = 64, 30, 68, 30
+    M = rng.normal(size=(B, n, n))
+    G = rng.normal(size=(B, m, n))
+    x0 = rng.normal(size=(B, n)) * 0.1
+    A = rng.normal(size=(B, p, n))
+    data = dict(P=np.einsum("bij,bkj->bik", M, M) / n + 0.5 * np.eye(n),
+                q=rng.normal(size=(B, n)), G=G,
+                h=np.einsum("bmn,bn->bm", G, x0)
+                + rng.uniform(0.1, 1.0, (B, m)),
+                A=A, b=np.einsum("bpn,bn->bp", A, x0),
+                eq_mask=np.repeat([[1.0] * 18 + [0.0] * 12], B, axis=0),
+                ineq_mask=np.ones((B, m)))
+    data = {k: v.astype(np.float32) for k, v in data.items()}
+    before = cuda_chol.chol_sub.launches
+    sol = qpsolve.solve_qp(convert.qp_data(data, dev), SolverConfig())
+    assert cuda_chol.chol_sub.launches > before
+    ref = qpsolve.solve_qp(convert.qp_data(data, "cpu"), SolverConfig())
+    agree = ((sol.converged.cpu() == ref.converged)
+             & (sol.iters.cpu() == ref.iters))
+    assert float(agree.float().mean()) >= 0.95
+    assert bool(ref.converged.all())
+    dx = (sol.x.cpu() - ref.x).abs().amax(dim=-1)[agree]
+    assert float(dx.max()) <= 1e-3 * (1.0 + float(ref.x.abs().max()))
+
+
+def test_closed_loop_runs_through_the_kernels(dev):
+    """A short closed-loop cycle (20 ticks) on the card launches the SPD
+    kernels and the resident IPM and stays finite and upright."""
+    from apf_quadruped_tpu_torch.config import GaitConfig
+    from apf_quadruped_tpu_torch.runtime import sweep
+    cfg = sweep.cli_config()
+    cfg = cfg.replace(gait=GaitConfig(mode="trot", trot_cycle=0.05))
+    scn = sweep.random_scenarios(cfg, 4, seed=0, use_native=False,
+                                 device=dev)
+    before = (cuda_chol.chol_factor.launches, cuda_chol.chol_sub.launches,
+              cuda_riccati.solve_stage_qp_resident.launches)
+    res = sweep.run_batch(cfg, scn, 1)
+    after = (cuda_chol.chol_factor.launches, cuda_chol.chol_sub.launches,
+             cuda_riccati.solve_stage_qp_resident.launches)
+    # per tick: 2 + 2 x 15 WBC factors and 4 mass-matrix factors
+    assert after[0] - before[0] == 20 * (2 + 2 * 15 + 4)
+    assert after[1] > before[1] and after[2] == before[2] + 1
+    assert bool(torch.isfinite(res.final_com).all())
+    assert bool((res.upright > 0.98).all())

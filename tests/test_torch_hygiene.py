@@ -3,8 +3,8 @@
   * importing every module of apf_quadruped_tpu_torch leaves both jax and
     the JAX package out of sys.modules (checked in a fresh interpreter),
     and the scripts that run on the GPU machine import neither;
-  * without nvcc, building the CUDA kernel raises instead of returning;
-  * backends and solver options that are not ported raise.
+  * without nvcc, building a CUDA kernel raises instead of returning;
+  * backends, solver options and sweep drivers that are not ported raise.
 """
 
 import ast
@@ -34,7 +34,20 @@ SLICE = ["apf_quadruped_tpu_torch", "apf_quadruped_tpu_torch.config",
          "apf_quadruped_tpu_torch.ops.riccati",
          "apf_quadruped_tpu_torch.ops.cuda_riccati",
          "apf_quadruped_tpu_torch.gait", "apf_quadruped_tpu_torch.planner",
-         "apf_quadruped_tpu_torch.convert", "apf_quadruped_tpu_torch.problems"]
+         "apf_quadruped_tpu_torch.convert", "apf_quadruped_tpu_torch.problems",
+         "apf_quadruped_tpu_torch.ops.chol",
+         "apf_quadruped_tpu_torch.ops.cuda_chol",
+         "apf_quadruped_tpu_torch.models.kinematics",
+         "apf_quadruped_tpu_torch.models.rbd",
+         "apf_quadruped_tpu_torch.wbc", "apf_quadruped_tpu_torch.swing",
+         "apf_quadruped_tpu_torch.apf", "apf_quadruped_tpu_torch.foothold",
+         "apf_quadruped_tpu_torch.sim.terrain",
+         "apf_quadruped_tpu_torch.sim.disturbance",
+         "apf_quadruped_tpu_torch.sim.physics",
+         "apf_quadruped_tpu_torch.runtime.observer",
+         "apf_quadruped_tpu_torch.runtime.loop",
+         "apf_quadruped_tpu_torch.runtime.sweep",
+         "apf_quadruped_tpu_torch.__main__"]
 
 
 def test_slice_imports_no_jax():
@@ -75,23 +88,57 @@ def test_every_package_module_is_checked():
     found = {m.removesuffix(".__init__") for m in found}
     missing = found - set(SLICE) - {"apf_quadruped_tpu_torch._shared",
                                     "apf_quadruped_tpu_torch.models",
-                                    "apf_quadruped_tpu_torch.ops"}
+                                    "apf_quadruped_tpu_torch.ops",
+                                    "apf_quadruped_tpu_torch.sim",
+                                    "apf_quadruped_tpu_torch.runtime"}
     assert not missing, missing
 
 
-def test_kernel_loader_raises_without_nvcc(monkeypatch, tmp_path):
+@pytest.mark.parametrize("loader", ["resident_ipm", "spd_chol"])
+def test_kernel_loader_raises_without_nvcc(monkeypatch, tmp_path, loader):
     if shutil.which("nvcc") or Path(os.environ.get(
             "CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc").is_file():
         pytest.skip("nvcc is installed here; the build itself is exercised "
                     "by chip_smoke.py")
     monkeypatch.setattr(_kernels, "BUILD_ROOT", tmp_path)
-    _kernels.resident_ipm.cache_clear()
+    load = getattr(_kernels, loader)
+    load.cache_clear()
     try:
         with pytest.raises(RuntimeError, match="nvcc not found"):
-            _kernels.resident_ipm()
+            load()
     finally:
-        _kernels.resident_ipm.cache_clear()
+        load.cache_clear()
     assert not list(tmp_path.rglob("*.so"))
+
+
+@pytest.mark.parametrize("driver,item", [("run_resumable", "15"),
+                                         ("step_batch_sharded", "17"),
+                                         ("run_sharded", "17")])
+def test_unported_sweep_drivers_raise(driver, item):
+    from apf_quadruped_tpu_torch.runtime import sweep
+    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item "
+                       f"{item}"):
+        getattr(sweep, driver)(sweep.cli_config(), None, 1)
+
+
+@pytest.mark.parametrize("argv", [["run"], ["bench"], ["sweep", "--sharded"],
+                                  ["sweep", "--checkpoint", "ckpt"]])
+def test_unported_cli_commands_raise(argv):
+    from apf_quadruped_tpu_torch.__main__ import main
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 16"):
+        main(argv)
+
+
+def test_spd_solve_on_cpu_takes_the_plain_version():
+    """CPU tensors never reach the kernel wrappers (no launch counted)."""
+    from apf_quadruped_tpu_torch.ops import chol, cuda_chol
+    H = torch.eye(5, dtype=torch.float64).expand(2, 5, 5) * 4.0
+    before = (cuda_chol.chol_factor.launches, cuda_chol.chol_sub.launches)
+    L, d = chol.spd_factor(H)
+    x = chol.spd_solve((L, d), torch.ones(2, 5, dtype=torch.float64))
+    assert torch.equal(x, torch.full((2, 5), 0.25, dtype=torch.float64))
+    assert (cuda_chol.chol_factor.launches,
+            cuda_chol.chol_sub.launches) == before
 
 
 @pytest.mark.parametrize("backend", ["riccati_fused", "condensed"])
