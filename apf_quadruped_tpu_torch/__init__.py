@@ -5,19 +5,20 @@ module here keeps its counterpart's name, function names, NamedTuple
 fields and array layouts (batch first, horizon next), and the tests feed
 both packages the same numpy inputs.
 
-Ported so far: the MPC plan path (`planner.plan`) and the batched closed
-loop (`runtime/sweep.run_batch` -> `runtime/loop.run_cycle`).
-    config.py, models/dogbot.py — the JAX package's pure-Python files,
-                  shared rather than copied (see _shared.py)
+Ported so far: the MPC plan path (`planner.plan`, every backend) and the
+batched closed loop (`runtime/sweep.run_batch` -> `runtime/loop.run_cycle`).
+    config.py, models/dogbot.py, runtime/native.py — the port's own
+                  copies of the JAX package's pure-Python files
     ops/rotations.py, models/srb.py, gait.py — plain tensor code
     ops/riccati.py — the stage-QP Riccati IPM as plain PyTorch (the CPU
                   path, and the plain version of the CUDA kernel)
-    ops/cuda_riccati.py + csrc/resident_ipm.cu — the resident IPM as one
-                  hand-written CUDA kernel for Hopper (sm_90a)
-    planner.py — the Riccati plan path
+    ops/cuda_riccati.py + csrc/resident_ipm.cu, csrc/fused_riccati.cu —
+                  the resident IPM as one hand-written CUDA kernel for
+                  Hopper (sm_90a), and the fused IPM around three kernels
+    planner.py — the plan: Riccati backends and the condensed dense QP
     ops/chol.py, ops/cuda_chol.py + csrc/spd_chol.cu — the batched SPD
-                  factor / substitution: CUDA kernels, and their plain
-                  versions on the CPU
+                  factor / substitution / factor-and-solve: CUDA kernels,
+                  and their plain versions on the CPU
     ops/qpsolve.py — the dense interior-point QP of the whole-body control
     models/kinematics.py, models/rbd.py — leg kinematics and 18-DoF
                   rigid-body dynamics in closed form
@@ -26,6 +27,7 @@ loop (`runtime/sweep.run_batch` -> `runtime/loop.run_cycle`).
     sim/ — terrain, disturbances, penalty-contact physics
     runtime/ — the momentum observer, the closed loop, the sweep
     __main__.py — the `sweep` command
+    _device.py — the entry points' device rule (the card unless asked)
     convert.py — carries JAX-package NamedTuples across as tensors
 
 Importing the package imports neither jax nor the JAX package; torch is

@@ -4,9 +4,9 @@
 
 mirrors `python -m apf_quadruped_tpu sweep`: a batch of random
 slippery-patch navigation scenarios walks through the closed loop in
-lockstep, on the first CUDA device when there is one (the hand-written
-kernels) and on the CPU otherwise (their plain versions), and the sweep
-statistics are printed.  The JAX CLI's other commands (`run`, `bench`) and
+lockstep on the CUDA card (the hand-written kernels), or on the CPU with
+`--device cpu` (their plain versions), and the sweep statistics are
+printed.  Without a card and without `--device cpu` it raises.  The JAX CLI's other commands (`run`, `bench`) and
 the sweep's --sharded and --checkpoint options are not ported yet
 (ROADMAP queue 1, item 16).
 """
@@ -19,6 +19,7 @@ import argparse
 def cmd_sweep(args):
     import torch
 
+    from ._device import resolve_device
     from .runtime import sweep
 
     if args.sharded or args.checkpoint:
@@ -29,7 +30,7 @@ def cmd_sweep(args):
         raise NotImplementedError(
             "the zoo robots' closed loop is not ported yet (ROADMAP queue 1, "
             "item 16)")
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = resolve_device(args.device, ask_cpu="--device cpu")
     cfg = sweep.cli_config(iters=args.iters)
     scn = sweep.random_scenarios(cfg, n=args.batch, seed=args.seed,
                                  device=device)
@@ -59,6 +60,9 @@ def main(argv=None):
     ps.add_argument("--iters", type=int, default=15)
     ps.add_argument("--seed", type=int, default=0)
     ps.add_argument("--robot", default="dogbot")
+    ps.add_argument("--device", default="cuda",
+                    help="torch device of the run (default cuda; cpu runs "
+                    "the kernels' plain versions)")
     ps.add_argument("--sharded", action="store_true")
     ps.add_argument("--checkpoint", default="")
     ps.set_defaults(fn=cmd_sweep)

@@ -1,0 +1,24 @@
+"""The device rule of the port's entry points.
+
+The entry points a user calls (`problems.bench_problem`,
+`runtime.sweep.random_scenarios`, `runtime.loop.init`, the `sweep`
+command) put their tensors on the CUDA card unless the caller asks for the
+CPU; every other function follows its input tensors' device.  Without a
+card, asking for it raises, naming how to ask for the CPU instead: there
+is no silent fallback.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device, ask_cpu: str = "device='cpu'") -> torch.device:
+    """torch.device(device), after checking that a CUDA device exists when
+    one is asked for; `ask_cpu` names the argument that selects the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"no CUDA device is available (torch.cuda.is_available() is "
+            f"False): pass {ask_cpu} to run on the CPU")
+    return device

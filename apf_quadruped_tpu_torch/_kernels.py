@@ -101,9 +101,39 @@ def spd_chol() -> ctypes.CDLL:
     lib.spd_factor_launch.restype = i32
     lib.spd_sub_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.spd_sub_launch.restype = i32
+    lib.spd_solve_launch.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
+    lib.spd_solve_launch.restype = i32
     lib.spd_chol_max_n.argtypes = []
     lib.spd_chol_max_n.restype = i32
     return lib
+
+
+@functools.cache
+def fused_riccati() -> ctypes.CDLL:
+    """The fused Riccati passes' library (csrc/fused_riccati.cu: rollout,
+    factor and vector kernels), built and loaded once per process."""
+    lib = ctypes.CDLL(str(build("fused_riccati",
+                                [CSRC / "fused_riccati.cu"])))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    dims = [i32] * 5 + [ptr]                      # B, H, nx, nu, m, stream
+    lib.fused_rollout_launch.argtypes = [ptr] * 12 + dims
+    lib.fused_factor_launch.argtypes = [ptr] * 9 + dims
+    lib.fused_vector_launch.argtypes = [ptr] * 10 + dims
+    for fn in (lib.fused_rollout_launch, lib.fused_factor_launch,
+               lib.fused_vector_launch):
+        fn.restype = i32
+    lib.fused_riccati_limits.argtypes = [ctypes.POINTER(i32)] * 4
+    lib.fused_riccati_limits.restype = None
+    return lib
+
+
+@functools.cache
+def fused_riccati_limits() -> tuple[int, int, int, int]:
+    """(NX_MAX, NU_MAX, M_MAX, the rollout's largest H) of the fused
+    kernels."""
+    vals = [ctypes.c_int() for _ in range(4)]
+    fused_riccati().fused_riccati_limits(*[ctypes.byref(v) for v in vals])
+    return tuple(v.value for v in vals)
 
 
 def resident_ipm_limits() -> tuple[int, int, int, int]:

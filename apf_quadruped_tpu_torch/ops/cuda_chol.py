@@ -1,12 +1,12 @@
-"""The batched SPD factor and substitution on the GPU: wrappers of
-csrc/spd_chol.cu.
+"""The batched SPD factor, substitution and factor-and-solve on the GPU:
+wrappers of csrc/spd_chol.cu.
 
-Ports of apf_quadruped_tpu/ops/pallas_chol.py::chol_factor_blocked and
-::chol_sub_blocked.  Each wrapper checks what its kernel takes (a CUDA
-float32 tensor, one batch axis in front, n <= 64), makes the input
-contiguous, allocates the outputs and launches on the current stream; it
-never falls back to another implementation.  The plain versions live in
-ops/chol.py, which also routes CPU tensors to them.
+Ports of apf_quadruped_tpu/ops/pallas_chol.py::chol_factor_blocked,
+::chol_sub_blocked and ::chol_solve_blocked.  Each wrapper checks what its
+kernel takes (a CUDA float32 tensor, one batch axis in front, n <= 64),
+makes the input contiguous, allocates the outputs and launches on the
+current stream; it never falls back to another implementation.  The plain
+versions live in ops/chol.py, which also routes CPU tensors to them.
 """
 
 from __future__ import annotations
@@ -104,6 +104,34 @@ def chol_sub(L: torch.Tensor, dinv: torch.Tensor,
     return X
 
 
+def chol_solve(M: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """X (B, n, k) with M X = rhs, for SPD M (B, n, n) and rhs (B, n, k):
+    factor and substitution in one launch; NaN on a lane whose matrix is
+    not positive definite."""
+    M = _check(M, "chol_solve", 3)
+    rhs = _check(rhs, "chol_solve", 3)
+    B, n, _ = M.shape
+    k = rhs.shape[-1]
+    if M.shape != (B, n, n) or rhs.shape[:2] != (B, n):
+        raise ValueError(f"chol_solve: shapes M {tuple(M.shape)}, rhs "
+                         f"{tuple(rhs.shape)} do not fit (B, n, n), (B, n, k)")
+    if n > _max_n():
+        raise ValueError(f"chol_solve: the kernel takes n <= {_max_n()}, "
+                         f"got n={n}")
+    X = torch.empty_like(rhs)
+    if B == 0 or k == 0:
+        return X
+    lib = _kernels.spd_chol()
+    with _on(M.device):
+        err = lib.spd_solve_launch(M.data_ptr(), rhs.data_ptr(), X.data_ptr(),
+                                   B, n, k, _stream(M.device))
+    if err != 0:
+        raise RuntimeError(f"spd_solve kernel launch failed: CUDA error {err}")
+    chol_solve.launches += 1
+    return X
+
+
 # kernel launches made by this process (chip_smoke.py reads them)
 chol_factor.launches = 0
 chol_sub.launches = 0
+chol_solve.launches = 0

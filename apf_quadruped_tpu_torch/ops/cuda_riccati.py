@@ -1,18 +1,31 @@
-"""The resident Riccati IPM on the GPU: wrapper of csrc/resident_ipm.cu.
+"""The Riccati IPM on the GPU: the resident kernel and the fused passes.
 
-Port of apf_quadruped_tpu/ops/pallas_riccati.py::solve_stage_qp_resident.
-The whole Mehrotra loop of ops.riccati.solve_stage_qp runs in one CUDA
-kernel launch, one warp per scenario (see the note at the top of the
-source).  This module flattens the batch dims of the StageQP into one
-contiguous float32 batch axis in front, as the kernel reads it, allocates
-its outputs and scratch, launches it on the current stream, and turns the
-outputs back into a StageSolution with the scan's NaN quarantine.
+Ports of apf_quadruped_tpu/ops/pallas_riccati.py's two kernel backends.
 
-Dispatch is by the tensors' device: CPU tensors go to the plain version,
-ops.riccati.solve_stage_qp; CUDA tensors launch the kernel or raise.
-Unlike the TPU kernel, the accel rows' z/s sit in the scan's layout
-(accel rows last) inside the kernel too, so warm z/s pass through as they
-are.
+`solve_stage_qp_resident` (backend "riccati_resident", csrc/resident_ipm.cu):
+the whole Mehrotra loop of ops.riccati.solve_stage_qp in one CUDA kernel
+launch, one warp per scenario.  The wrapper flattens the batch dims of the
+StageQP into one contiguous float32 batch axis in front, as the kernel
+reads it, allocates its outputs and scratch, launches it on the current
+stream, and turns the outputs back into a StageSolution with the scan's
+NaN quarantine.  Unlike the TPU kernel, the accel rows' z/s sit in the
+scan's layout (accel rows last) inside the kernel too, so warm z/s pass
+through as they are.  CPU tensors go to the plain version,
+ops.riccati.solve_stage_qp.
+
+`solve_stage_qp_fused` (backend "riccati_fused", csrc/fused_riccati.cu):
+the same Mehrotra IPM written in PyTorch around three kernels a pass each,
+as the JAX package's `_solve_fused_impl`: per iteration one
+`fused_rollout` (rollout, costates, stationarity residual), one
+`fused_factor` (the Riccati factorization) and two `fused_vector` (the
+predictor's and the corrector's affine-LQR pass).  Arrays are batch-first
+and contiguous per scenario.  The loop reads nothing back to the host, so
+it runs all cfg.iters iterations; a lane that is done takes zero steps.
+It has no state rows and no accel rows (planner.effective_backend sends
+base_box / base_acc plans to the resident kernel) and no stage_bf16.
+Each pass wrapper launches its kernel on CUDA tensors and takes its plain
+version (`plain_rollout`, `plain_factor_pass`, `plain_vector_pass`: loops
+over the horizon of batched small matrix products) on CPU tensors.
 """
 
 from __future__ import annotations
@@ -23,9 +36,11 @@ import math
 import torch
 
 from .. import _kernels
+from .._precision import highest_precision
 from ..config import SolverConfig
-from .riccati import (StageQP, StageSolution, WarmStart, check_solver_config,
-                      finalize, solve_stage_qp)
+from .riccati import (StageQP, StageSolution, WarmStart, _mtv, _mv,
+                      check_solver_config, finalize, solve_stage_qp,
+                      spd_factor, spd_solve)
 
 
 def solve_stage_qp_resident(qp: StageQP, cfg: SolverConfig = SolverConfig(),
@@ -135,3 +150,286 @@ def _launch(qp: StageQP, cfg: SolverConfig,
                     stat[..., 3],
                     unflat(out["zx"]) if has_x else None,
                     unflat(out["sx"]) if has_x else None)
+
+
+# ---------------------------------------------------------------------------
+# the fused passes: plain versions (CPU) and kernel wrappers (CUDA)
+# ---------------------------------------------------------------------------
+
+def plain_rollout(G, R, Q, A, Bm, q, u, zm, x0):
+    """x (B, H, nx) with x_{k+1} = A_k x_k + B_k u_k; rx (B, H, nu) =
+    R u_k + B_k' lam_k + G' zm_k with the costates lam_k = Q x_{k+1} + q_k
+    + A_{k+1}' lam_{k+1}; gu (B, H, m) = G u_k."""
+    H = A.shape[1]
+    x, xs = x0, []
+    for k in range(H):
+        x = _mv(A[:, k], x) + _mv(Bm[:, k], u[:, k])
+        xs.append(x)
+    lam = torch.zeros_like(x0)
+    rx = [None] * H
+    for k in reversed(range(H)):
+        lam_k = xs[k] @ Q.T + q[:, k] + lam
+        rx[k] = u[:, k] @ R.T + _mtv(Bm[:, k], lam_k) + zm[:, k] @ G
+        lam = _mtv(A[:, k], lam_k)
+    return torch.stack(xs, 1), torch.stack(rx, 1), u @ G.T
+
+
+def plain_factor_pass(G, R, Q, A, Bm, W):
+    """The Riccati factorization, backward over the knots from P = Q:
+    M_k = R + G' diag(W_k) G + B_k' P B_k -> L (B, H, nu, nu) lower,
+    dinv (B, H, nu) = 1 / diag(L), K (B, H, nu, nx) = M_k^-1 B_k' P A_k;
+    P <- sym(Q + A_k' P A_k - K_k' B_k' P A_k).  NaN where M_k is not
+    positive definite."""
+    H = A.shape[1]
+    P = torch.broadcast_to(Q, A.shape[:1] + Q.shape)
+    L, D, K = [None] * H, [None] * H, [None] * H
+    for k in reversed(range(H)):
+        Ak, Bk = A[:, k], Bm[:, k]
+        BtP = Bk.transpose(-1, -2) @ P
+        M = R + G.T @ (W[:, k, :, None] * G) + BtP @ Bk
+        L[k] = spd_factor(M)
+        D[k] = 1.0 / torch.diagonal(L[k], dim1=-2, dim2=-1)
+        BtPA = BtP @ Ak
+        K[k] = spd_solve(L[k], BtPA)
+        Pn = Q + Ak.transpose(-1, -2) @ P @ Ak - K[k].transpose(-1, -2) @ BtPA
+        P = 0.5 * (Pn + Pn.transpose(-1, -2))
+    return torch.stack(L, 1), torch.stack(D, 1), torch.stack(K, 1)
+
+
+def plain_vector_pass(G, A, Bm, L, dinv, K, rx, vm):
+    """The affine LQR pass against stored factors: backward g = rx_k +
+    G' vm_k + B_k' sv, kff_k = M_k^-1 g, sv <- A_k' sv - K_k' g; forward
+    du_k = -K_k dx - kff_k, dx <- A_k dx + B_k du_k.  Returns du (B, H, nu)
+    and gdu (B, H, m) = G du_k."""
+    del dinv                    # the triangular solves use L's diagonal
+    H = A.shape[1]
+    sv = torch.zeros_like(A[:, 0, 0])
+    kff = [None] * H
+    for k in reversed(range(H)):
+        g = rx[:, k] + vm[:, k] @ G + _mtv(Bm[:, k], sv)
+        kff[k] = spd_solve(L[:, k], g)
+        sv = _mtv(A[:, k], sv) - _mtv(K[:, k], g)
+    dx, du = torch.zeros_like(sv), []
+    for k in range(H):
+        d = -_mv(K[:, k], dx) - kff[k]
+        dx = _mv(A[:, k], dx) + _mv(Bm[:, k], d)
+        du.append(d)
+    du = torch.stack(du, 1)
+    return du, du @ G.T
+
+
+def _fused_dims(A, Bm, G):
+    B, H, nx = A.shape[:3]
+    nu, m = Bm.shape[-1], G.shape[0]
+    nx_max, nu_max, m_max, h_max = _kernels.fused_riccati_limits()
+    if nx > nx_max or nu > nu_max or m > m_max:
+        raise ValueError(f"fused Riccati kernels support nx<={nx_max}, "
+                         f"nu<={nu_max}, m<={m_max}; got nx={nx}, nu={nu}, "
+                         f"m={m}")
+    return B, H, nx, nu, m, h_max
+
+
+def _kernel_args(name, *tensors):
+    """Check CUDA float32 and make contiguous: the kernels' inputs."""
+    out = []
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: the fused Riccati kernels take CUDA "
+                             f"tensors, got {t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: the fused Riccati kernels run in "
+                            f"float32, got {t.dtype}")
+        out.append(t.contiguous())
+    return out
+
+
+def _launch_fused(name, fn, tensors, outs, dims, device):
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*(t.data_ptr() for t in tensors + outs), *dims,
+                 ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def _route(name, t):
+    kind = t.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return kind == "cuda"
+
+
+def fused_rollout(G, R, Q, A, Bm, q, u, zm, x0):
+    """plain_rollout's contract; one kernel launch on CUDA tensors."""
+    if not _route("fused_rollout", x0):
+        return plain_rollout(G, R, Q, A, Bm, q, u, zm, x0)
+    args = _kernel_args("fused_rollout", G, R, Q, A, Bm, q, u, zm, x0)
+    B, H, nx, nu, m, h_max = _fused_dims(A, Bm, G)
+    if H > h_max:
+        raise ValueError(f"fused_rollout: the kernel keeps x in shared "
+                         f"memory and takes H <= {h_max}, got H={H}")
+    opts = dict(dtype=torch.float32, device=x0.device)
+    outs = [torch.empty((B, H, nx), **opts), torch.empty((B, H, nu), **opts),
+            torch.empty((B, H, m), **opts)]
+    _launch_fused("fused_rollout", _kernels.fused_riccati().fused_rollout_launch,
+                  args, outs, (B, H, nx, nu, m), x0.device)
+    fused_rollout.launches += 1
+    return tuple(outs)
+
+
+def fused_factor(G, R, Q, A, Bm, W):
+    """plain_factor_pass's contract; one kernel launch on CUDA tensors."""
+    if not _route("fused_factor", A):
+        return plain_factor_pass(G, R, Q, A, Bm, W)
+    args = _kernel_args("fused_factor", G, R, Q, A, Bm, W)
+    B, H, nx, nu, m, _ = _fused_dims(A, Bm, G)
+    opts = dict(dtype=torch.float32, device=A.device)
+    outs = [torch.empty((B, H, nu, nu), **opts),
+            torch.empty((B, H, nu), **opts),
+            torch.empty((B, H, nu, nx), **opts)]
+    _launch_fused("fused_factor", _kernels.fused_riccati().fused_factor_launch,
+                  args, outs, (B, H, nx, nu, m), A.device)
+    fused_factor.launches += 1
+    return tuple(outs)
+
+
+def fused_vector(G, A, Bm, L, dinv, K, rx, vm):
+    """plain_vector_pass's contract; one kernel launch on CUDA tensors."""
+    if not _route("fused_vector", A):
+        return plain_vector_pass(G, A, Bm, L, dinv, K, rx, vm)
+    args = _kernel_args("fused_vector", G, A, Bm, L, dinv, K, rx, vm)
+    B, H, nx, nu, m, _ = _fused_dims(A, Bm, G)
+    opts = dict(dtype=torch.float32, device=A.device)
+    outs = [torch.empty((B, H, nu), **opts), torch.empty((B, H, m), **opts)]
+    _launch_fused("fused_vector", _kernels.fused_riccati().fused_vector_launch,
+                  args, outs, (B, H, nx, nu, m), A.device)
+    fused_vector.launches += 1
+    return tuple(outs)
+
+
+# kernel launches made by this process (chip_smoke.py reads them)
+fused_rollout.launches = 0
+fused_factor.launches = 0
+fused_vector.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the fused IPM: the Mehrotra loop around the three passes
+# ---------------------------------------------------------------------------
+
+def solve_stage_qp_fused(qp: StageQP, cfg: SolverConfig = SolverConfig(),
+                         warm: WarmStart | None = None) -> StageSolution:
+    """Same contract and outputs as ops.riccati.solve_stage_qp for a StageQP
+    without state rows or accel rows."""
+    check_solver_config(cfg)
+    if qp.Cx is not None or qp.acc_rhs is not None:
+        raise ValueError(
+            "the fused Riccati IPM has no state rows (Cx) or accel rows "
+            "(acc_rhs); use solve_stage_qp_resident (planner."
+            "effective_backend reroutes base_box / base_acc plans)")
+    if qp.x0.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"solve_stage_qp_fused: unsupported device "
+                         f"{qp.x0.device}")
+    with highest_precision():
+        return _fused_impl(qp, cfg, warm)
+
+
+def _fused_impl(qp: StageQP, cfg: SolverConfig,
+                warm: WarmStart | None) -> StageSolution:
+    dt, dev = qp.x0.dtype, qp.x0.device
+    batch = qp.x0.shape[:-1]
+    nb = math.prod(batch)
+    H, nx, nu, m = qp.A.shape[-3], qp.A.shape[-1], qp.B.shape[-1], \
+        qp.h.shape[-1]
+
+    def flat(v, rows):
+        """(batch..) + rows -> (nb,) + rows, contiguous."""
+        v = torch.broadcast_to(v.to(device=dev, dtype=dt), batch + rows)
+        return v.reshape((nb,) + rows).contiguous()
+
+    A, Bm = flat(qp.A, (H, nx, nx)), flat(qp.B, (H, nx, nu))
+    q, mask = flat(qp.qlin, (H, nx)), flat(qp.mask, (H, m))
+    h = torch.where(mask > 0, flat(qp.h, (H, m)), torch.ones_like(mask))
+    x0 = flat(qp.x0, (nx,))
+    G, R, Q = (v.to(dt).contiguous() for v in (qp.G, qp.R, qp.Q))
+    # reg goes into the factor pass's R only; the stationarity residual
+    # uses the unregularised R, as in the scan
+    rmat = R + cfg.static_reg * torch.eye(nu, dtype=dt, device=dev)
+    m_eff = torch.clamp(mask.sum(dim=(1, 2)), min=1.0)
+    ms, frac = cfg.min_slack, cfg.frac_to_boundary
+
+    # ---- initial point ----------------------------------------------------
+    u = torch.zeros((nb, H, nu), dtype=dt, device=dev)
+    r0 = -h
+    shift = torch.clamp(r0.amax(dim=(1, 2), keepdim=True), min=0.0) + 1.0
+    s = -r0 + shift
+    z = torch.clamp(r0, min=0.0) + 1.0
+    if warm is not None:
+        v = flat(warm.valid, ())[:, None, None] > 0.5
+        floor = torch.as_tensor(cfg.warm_floor, dtype=dt, device=dev)
+        u = torch.where(v, flat(warm.u, (H, nu)), u)
+        z = torch.where(v, torch.maximum(flat(warm.z, (H, m)), floor), z)
+        s = torch.where(v, torch.maximum(flat(warm.s, (H, m)), floor), s)
+    qnorm = 1.0 + torch.sqrt((q * q).sum(dim=(1, 2)))
+    hnorm = 1.0 + torch.sqrt((h * h).sum(dim=(1, 2)))
+
+    def measure(u, z, s):
+        x, rx, gu = fused_rollout(G, R, Q, A, Bm, q, u, mask * z, x0)
+        rz = mask * gu + s - h
+        mu = (s * z * mask).sum(dim=(1, 2)) / m_eff
+        res = torch.maximum(
+            torch.sqrt((rx * rx).sum(dim=(1, 2))) / qnorm,
+            torch.sqrt(((rz * mask) ** 2).sum(dim=(1, 2))) / hnorm)
+        return x, rx, rz, mu, res
+
+    def ratio(v, dv):
+        neg = (dv < 0) & (mask > 0)
+        r = torch.where(neg, -v / torch.where(neg, dv, -torch.ones_like(dv)),
+                        torch.full_like(v, float("inf")))
+        return r.amin(dim=(1, 2))
+
+    def steplen(s, ds, z, dz, f):
+        return torch.clamp(f * torch.minimum(ratio(s, ds), ratio(z, dz)),
+                           max=1.0)
+
+    done = torch.zeros(nb, dtype=torch.bool, device=dev)
+    it_conv = torch.full((nb,), cfg.iters, dtype=torch.int32, device=dev)
+    for it in range(cfg.iters):
+        x, rx, rz, mu, res = measure(u, z, s)
+        now = (res < cfg.reltol) & (mu < cfg.abstol)
+        it_conv = it_conv.masked_fill(now & ~done, it)
+        done = done | now
+
+        s_safe = torch.clamp(s, min=ms)
+        W = torch.clamp(torch.clamp(z, min=ms) / s_safe, 0.0, cfg.w_clip)
+        L, D, K = fused_factor(G, rmat, Q, A, Bm, mask * W)
+
+        def newton(rc):
+            vm = mask * (W * rz + rc / s_safe)
+            du, gdu = fused_vector(G, A, Bm, L, D, K, rx, vm)
+            ds = -rz - mask * gdu
+            return du, (rc - z * ds) / s_safe, ds
+
+        du_a, dz_a, ds_a = newton(-s * z)
+        a_a = steplen(s, ds_a, z, dz_a, 1.0)[:, None, None]
+        mu_aff = ((s + a_a * ds_a) * (z + a_a * dz_a)
+                  * mask).sum(dim=(1, 2)) / m_eff
+        sigma = torch.clamp(mu_aff / torch.clamp(mu, min=ms), 0.0,
+                            1.0) ** cfg.sigma_pow
+        rc = -(s * z + ds_a * dz_a - (sigma * mu)[:, None, None])
+        du, dz, ds = newton(rc)
+
+        a = steplen(s, ds, z, dz, frac)
+        a = torch.where(done, torch.zeros_like(a), a)[:, None, None]
+        u = u + a * du
+        z = torch.clamp(z + a * dz, min=ms)
+        s = torch.clamp(s + a * ds, min=ms)
+
+    x, _, _, mu, res = measure(u, z, s)
+    conv = done | ((res < cfg.reltol) & (mu < cfg.abstol))
+
+    def unflat(v):
+        return v.reshape(batch + v.shape[1:])
+
+    return finalize(unflat(u), unflat(x), unflat(z), unflat(s), unflat(conv),
+                    unflat(it_conv), unflat(mu), unflat(res))

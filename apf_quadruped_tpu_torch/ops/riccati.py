@@ -86,10 +86,6 @@ class WarmStart(NamedTuple):
 
 def check_solver_config(cfg: SolverConfig) -> None:
     """Raise on SolverConfig options that the port does not implement."""
-    if cfg.use_pallas:
-        raise NotImplementedError(
-            "SolverConfig.use_pallas routes the SPD solves through the "
-            "pallas_chol kernel, which is not ported yet (ROADMAP queue 2)")
     if cfg.stage_bf16:
         raise NotImplementedError(
             "SolverConfig.stage_bf16 is left out of the port (ROADMAP "
@@ -120,6 +116,22 @@ def spd_solve(L, r):
     w = torch.linalg.solve_triangular(L, r, upper=False)
     out = torch.linalg.solve_triangular(L.transpose(-1, -2), w, upper=True)
     return out[..., 0] if vec else out
+
+
+def _spd_solve_factory(cfg: SolverConfig):
+    """(factor, solve): factor(M) -> F, solve(F, r) -> M^-1 r for r (.., n)
+    or (.., n, k).
+
+    Default: one Cholesky factor per knot (spd_factor), two triangular
+    solves per right-hand side.  cfg.use_pallas: F is M itself, and every
+    solve refactors it inside the one-pass ops.chol.chol_solve (the CUDA
+    kernel on the card, its plain version on the CPU) — at n = 12 the
+    refactor is ~300 flops a matrix, cheaper than the launches it saves.
+    """
+    if cfg.use_pallas:
+        from .chol import chol_solve
+        return (lambda M: M), chol_solve
+    return spd_factor, spd_solve
 
 
 def solve_stage_qp(qp: StageQP, cfg: SolverConfig = SolverConfig(),
@@ -218,10 +230,13 @@ def _solve_impl(qp: StageQP, cfg: SolverConfig,
         rzx = _mv(C_t, x_t) + sx_t - cx_t if has_x else None
         return rx, rz, rzx
 
+    factor, solve = _spd_solve_factory(cfg)
+
     def riccati_factor(W_t, Wx_t):
         """Backward matrix pass; the carry Pbar_{k+1} = Q + P_{k+1} is the
         cost-to-go Hessian at x_{k+1} including that stage's state cost.
-        Returns per-knot Cholesky factors L_k and gains K_k."""
+        Returns per-knot factors L_k (M_k itself under use_pallas) and
+        gains K_k."""
         Pbar = torch.broadcast_to(Q, batch + (NX, NX))
         L_t, K_t = [None] * Hh, [None] * Hh
         for k in reversed(range(Hh)):
@@ -233,9 +248,9 @@ def _solve_impl(qp: StageQP, cfg: SolverConfig,
             Rk = R + reg * eye_u + Gk.transpose(-1, -2) @ (W_t[k][..., None]
                                                            * Gk)
             BtP = Bk.transpose(-1, -2) @ Pb                    # (.., NU, NX)
-            Lk = spd_factor(Rk + BtP @ Bk)
+            Lk = factor(Rk + BtP @ Bk)
             BtPA = BtP @ Ak
-            K = spd_solve(Lk, BtPA)                            # (.., NU, NX)
+            K = solve(Lk, BtPA)                                # (.., NU, NX)
             AtP = Ak.transpose(-1, -2) @ Pb
             Pn = Q + AtP @ Ak - K.transpose(-1, -2) @ BtPA
             Pbar = 0.5 * (Pn + Pn.transpose(-1, -2))
@@ -253,7 +268,7 @@ def _solve_impl(qp: StageQP, cfg: SolverConfig,
             if has_x:
                 sv = sv + _mtv(C_t[k], vmx_t[k])
             g_u = -rhs_t[k] + _mtv(B_t[k], sv)
-            kff_t[k] = spd_solve(L_t[k], g_u)
+            kff_t[k] = solve(L_t[k], g_u)
             sv = _mtv(A_t[k], sv) - _mtv(K_t[k], g_u)
         dx = torch.zeros(batch + (NX,), dtype=dt, device=dev)
         du_t, dx1_t = [], []

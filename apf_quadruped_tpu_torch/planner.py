@@ -1,19 +1,26 @@
-"""Convex SRB MPC over the gait horizon — the Riccati plan path.
+"""Convex SRB MPC over the gait horizon.
 
 Port of apf_quadruped_tpu/planner.py.  Per replan: the gait supplies the
 contact schedule, the navigation layer the footholds and the CoM goal;
 the per-knot linearized SRB dynamics, the friction pyramids (masked by the
 stance schedule) and the optional base-box / base-accel rows make one
 StageQP per scenario, solved in one batched call of the Riccati interior
-point.  Gait switching changes data, never shapes.
+point — or, condensed over the horizon, one dense QP in the stacked forces.
+Gait switching changes data, never shapes.
 
 Backends (MpcConfig.backend), resolved by `effective_backend` from the
-tensors' device:
+config and the tensors' device:
   * "riccati_resident": the whole IPM as one CUDA kernel
     (ops/cuda_riccati.py); on CPU tensors its plain version runs instead;
+  * "riccati_fused": the same IPM with each pass of an iteration a CUDA
+    kernel of its own (ops/cuda_riccati.solve_stage_qp_fused), kept as the
+    resident kernel's cross-check; with base_box or base_acc it resolves
+    to "riccati_resident", as the fused passes have no such rows;
   * "riccati": the IPM as plain PyTorch (ops/riccati.py);
-  * "auto": "riccati_resident" on a CUDA device, "riccati" on the CPU;
-  * "riccati_fused" and "condensed" are not ported yet and raise.
+  * "condensed": the states eliminated, a dense QP in U = [u_0..u_{H-1}]
+    (n = 12H) through ops.qpsolve.solve_qp, kept to cross-validate the
+    base_box / base_acc rows; it ignores warm starts and sqp_iters;
+  * "auto": "riccati_resident" on a CUDA device, "riccati" on the CPU.
 """
 
 from __future__ import annotations
@@ -26,8 +33,8 @@ import torch
 from ._precision import highest_precision
 from .config import EngineConfig
 from .models import srb
-from .ops.cuda_riccati import solve_stage_qp_resident
-from .ops.qpsolve import QPSolution
+from .ops.cuda_riccati import solve_stage_qp_fused, solve_stage_qp_resident
+from .ops.qpsolve import QPData, QPSolution, solve_qp
 from .ops.riccati import StageQP, WarmStart, solve_stage_qp
 
 ROWS_PER_FOOT = 6   # fz<=fmax, -fz<=-fmin, +-fx-mu fz<=0, +-fy-mu fz<=0
@@ -99,23 +106,20 @@ def _forces_to_local(u, cone_rot):
     return torch.einsum("...lji,...lj->...li", cone_rot, uw).reshape(u.shape)
 
 
+BACKENDS = ("auto", "riccati", "riccati_resident", "riccati_fused",
+            "condensed")
+
+
 def effective_backend(cfg: EngineConfig, device) -> str:
     """The backend plan() uses for tensors on `device`."""
     backend = cfg.mpc.backend
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown MpcConfig.backend {backend!r}")
+    if backend == "riccati_fused" and (cfg.mpc.base_box or cfg.mpc.base_acc):
+        return "riccati_resident"
     if backend == "auto":
         on_gpu = torch.device(device).type == "cuda"
         return "riccati_resident" if on_gpu else "riccati"
-    if backend == "riccati_fused":
-        raise NotImplementedError(
-            "backend 'riccati_fused' needs the three pallas_riccati kernels "
-            "(_rollout_kernel, _factor_kernel, _vector_kernel), not ported "
-            "yet (ROADMAP queue 2, items 5-7)")
-    if backend == "condensed":
-        raise NotImplementedError(
-            "backend 'condensed' needs the dense QP solver ops.qpsolve, not "
-            "ported yet (ROADMAP queue 1, items 9-10)")
-    if backend not in ("riccati", "riccati_resident"):
-        raise ValueError(f"unknown MpcConfig.backend {backend!r}")
     return backend
 
 
@@ -154,6 +158,8 @@ def plan(cfg: EngineConfig, state0, refs: MpcRefs,
     """
     backend = effective_backend(cfg, state0.device)
     with highest_precision():
+        if backend == "condensed":
+            return _plan_condensed(cfg, state0, refs)
         return _plan_riccati(cfg, state0, refs, backend, warm)
 
 
@@ -247,8 +253,9 @@ def stage_qp(cfg: EngineConfig, state0, refs: MpcRefs, A=None,
 
 def _plan_riccati(cfg: EngineConfig, state0, refs: MpcRefs, backend: str,
                   warm: WarmStart | None = None) -> MpcPlan:
-    solver = (solve_stage_qp_resident if backend == "riccati_resident"
-              else solve_stage_qp)
+    solver = {"riccati_resident": solve_stage_qp_resident,
+              "riccati_fused": solve_stage_qp_fused,
+              "riccati": solve_stage_qp}[backend]
 
     def solve(A, B, warm):
         if refs.cone_rot is not None and warm is not None:
@@ -274,3 +281,107 @@ def _plan_riccati(cfg: EngineConfig, state0, refs: MpcRefs, backend: str,
                       gap=sol.gap, res_norm=sol.res_norm)
     return MpcPlan(forces=sol.u.reshape(sol.u.shape[:-1] + (4, 3)),
                    states=sol.x, sol=diag)
+
+
+def _condense(A, B, x0):
+    """Condense x_{k+1} = A_k x_k + B_k u_k over the horizon.
+
+    A: (.., H, NX, NX), B: (.., H, NX, NU), x0: (.., NX).  Returns the free
+    response Sx_x0 (.., H, NX) and Su (.., H, NX, H*NU) with
+    x_{k+1} = Sx_x0[k] + Su[k] @ U, carried as the running row [free,
+    forced]: one (NX x NX) @ (NX x H*NU) product per knot.
+    """
+    Hh, NU = A.shape[-3], B.shape[-1]
+    free = x0
+    forced = torch.zeros(x0.shape + (Hh * NU,), dtype=x0.dtype,
+                         device=x0.device)
+    frees, forceds = [], []
+    for k in range(Hh):
+        free = torch.einsum("...ij,...j->...i", A[..., k, :, :], free)
+        forced = A[..., k, :, :] @ forced
+        forced[..., k * NU:(k + 1) * NU] += B[..., k, :, :]
+        frees.append(free)
+        forceds.append(forced)
+    return torch.stack(frees, dim=-2), torch.stack(forceds, dim=-3)
+
+
+def _plan_condensed(cfg: EngineConfig, state0, refs: MpcRefs) -> MpcPlan:
+    """The dense QP in the stacked forces: cost sum_k |x_{k+1} - xref_k|_Q^2
+    + w_force |U|^2 over the condensed prediction, the friction pyramids as
+    the constant block diagonal kron(I_H, pyramid) under the stance masks,
+    and the base_box / base_acc rows written on U."""
+    mpc = cfg.mpc
+    Hh, NX, NU = mpc.horizon, srb.NX, srb.NU
+    dtype, dev = state0.dtype, state0.device
+    batch = state0.shape[:-1]
+    opts = dict(dtype=dtype, device=dev)
+
+    A, B = _linearizations(cfg, refs)
+    if refs.cone_rot is not None:
+        B = _rotate_B(B, refs.cone_rot)          # solve in the cone basis
+    Sx_x0, Su = _condense(A, B, state0)          # (.., H, NX), (.., H, NX, H*NU)
+
+    q_diag = _mpc_costs(cfg, dtype, dev)
+    err0 = Sx_x0 - refs.x_ref
+    SuQ = Su * q_diag[:, None]
+    P = torch.einsum("...hni,...hnj->...ij", SuQ, Su)
+    P = P + mpc.w_force * torch.eye(Hh * NU, **opts)
+    qv = torch.einsum("...hni,...hn->...i", SuQ, err0)
+
+    blk, rhs_blk = _pyramid_constants(cfg)
+    m_total = Hh * 4 * ROWS_PER_FOOT
+    G = torch.broadcast_to(torch.as_tensor(np.kron(np.eye(Hh), blk), **opts),
+                           batch + (m_total, Hh * NU))
+    h = torch.broadcast_to(torch.as_tensor(np.tile(rhs_blk, Hh), **opts),
+                           batch + (m_total,))
+    ineq_mask = torch.repeat_interleave(refs.contacts, ROWS_PER_FOOT,
+                                        dim=-1).reshape(batch + (m_total,))
+    Gs, hs, ms = [G], [h], [ineq_mask]
+
+    if mpc.base_box:
+        # towr BaseMotionConstraint (base_motion_constraint.cc:46-55):
+        # roll/pitch in +-dev_rad, base z in [z0 - below, z0 + above],
+        # exact on the condensed form x_k = Sx_x0 + Su U: two rows on U per
+        # knot per dim
+        dims = [0, 1, 5]
+        z0 = state0[..., 5]
+        dev_rad = torch.tensor(mpc.base_dev_rad, **opts)
+        los = torch.stack([-dev_rad + 0.0 * z0, -dev_rad + 0.0 * z0,
+                           z0 - mpc.base_z_below], dim=-1)
+        his = torch.stack([dev_rad + 0.0 * z0, dev_rad + 0.0 * z0,
+                           z0 + mpc.base_z_above], dim=-1)
+        Su_d, Sx_d = Su[..., :, dims, :], Sx_x0[..., :, dims]
+        n_box = Hh * 2 * len(dims)
+        Gs.append(torch.cat([Su_d, -Su_d], dim=-2)
+                  .reshape(batch + (n_box, Hh * NU)))
+        hs.append(torch.cat([his[..., None, :] - Sx_d,
+                             Sx_d - los[..., None, :]], dim=-1)
+                  .reshape(batch + (n_box,)))
+        ms.append(torch.ones(batch + (n_box,), **opts))
+
+    if mpc.base_acc:
+        # per-knot input rows +-B_k[6:12,:] u_k <= acc_rhs -+ A_k[6:12,12]
+        # (StageQP.acc_rhs), block diagonal on the stacked U
+        SB, off = B[..., 6:12, :], A[..., 6:12, 12]
+        rhs6 = torch.tensor([mpc.acc_ang_max] * 3 + [mpc.acc_lin_max] * 3,
+                            **opts) * mpc.dt
+        Gacc = torch.einsum("hk,...hrc->...hrkc", torch.eye(Hh, **opts),
+                            SB).reshape(batch + (Hh * 6, Hh * NU))
+        Gs += [Gacc, -Gacc]
+        hs += [(rhs6 - off).reshape(batch + (Hh * 6,)),
+               (rhs6 + off).reshape(batch + (Hh * 6,))]
+        ms.append(torch.ones(batch + (Hh * 12,), **opts))
+
+    # no equality rows (swing forces are decoupled and regularized to zero)
+    zeros1 = torch.zeros(batch + (1,), **opts)
+    qp = QPData(P=P, q=qv, A=torch.zeros(batch + (1, Hh * NU), **opts),
+                b=zeros1, G=torch.cat(Gs, dim=-2), h=torch.cat(hs, dim=-1),
+                eq_mask=zeros1, ineq_mask=torch.cat(ms, dim=-1))
+    sol = solve_qp(qp, cfg.solver)
+
+    states = Sx_x0 + torch.einsum("...hnm,...m->...hn", Su, sol.x)
+    U_knots = sol.x.reshape(batch + (Hh, NU))
+    if refs.cone_rot is not None:
+        U_knots = _forces_to_world(U_knots, refs.cone_rot)
+    return MpcPlan(forces=U_knots.reshape(batch + (Hh, 4, 3)),
+                   states=states, sol=sol)

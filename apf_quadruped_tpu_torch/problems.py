@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from . import gait, planner
+from ._device import resolve_device
 from .config import EngineConfig
 from .models import srb
 from .models.dogbot import nominal_stance
@@ -53,8 +54,10 @@ def random_stage_qp(rng: np.random.Generator, B=4, H=5, NX=6, NU=4, M=6,
 
 
 def bench_problem(cfg: EngineConfig, B: int, seed: int = 0,
-                  dtype=torch.float32, device=None):
-    """(state0, refs) of bench.py's planner problem at batch B."""
+                  dtype=torch.float32, device="cuda"):
+    """(state0, refs) of bench.py's planner problem at batch B, on the
+    card unless `device` says otherwise."""
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
 
     def t(v):

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from .. import apf, foothold, gait, planner, swing, wbc
+from .._device import resolve_device
 from .._precision import highest_precision
 from ..config import EngineConfig
 from ..models import rbd, srb
@@ -325,8 +326,10 @@ def run(cfg: EngineConfig, st: LoopState, terr: terrain_mod.Terrain,
 
 
 def init(cfg: EngineConfig, batch: int = 1, xy=(0.0, 0.0), yaw: float = 0.0,
-         dtype=torch.float32, device=None) -> LoopState:
-    """`batch` identical LoopStates at rest at the spawn pose."""
+         dtype=torch.float32, device="cuda") -> LoopState:
+    """`batch` identical LoopStates at rest at the spawn pose, on the card
+    unless `device` says otherwise."""
+    device = resolve_device(device)
     Hh = cfg.mpc.horizon
     nrow = 24 + (12 if cfg.mpc.base_acc else 0)   # pyramid (+ base_acc) rows
     b = (batch,)

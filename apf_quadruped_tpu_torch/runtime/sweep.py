@@ -5,9 +5,8 @@ a batch of (terrain, target, disturbance) scenarios walks through the
 closed loop (runtime/loop.py) in lockstep.  The JAX module vmaps a
 single-scenario loop; the port's loop is batched already, so the batch
 runs as it is.  Scenario generation is host-side data loading: the native
-C++ rasterizer (apf_quadruped_tpu/runtime/native.py, loaded by file, no
-jax) when g++ builds it, else numpy with the JAX module's RNG order;
-the two give different scenarios from one seed.
+C++ rasterizer (runtime/native.py) when g++ builds it, else numpy with the
+JAX module's RNG order; the two give different scenarios from one seed.
 """
 
 from __future__ import annotations
@@ -17,10 +16,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .._shared import load_shared
+from .._device import resolve_device
 from ..config import EngineConfig
 from ..sim import disturbance, terrain as terrain_mod
-from . import loop
+from . import loop, native
 
 
 class Scenario(NamedTuple):
@@ -58,26 +57,22 @@ def cli_config(iters: int = 15) -> EngineConfig:
                         wbc=WbcConfig(slack_weight_trot=1e6))
 
 
-def native():
-    """The JAX package's native scenario generator module (numpy + ctypes,
-    no jax), loaded by file."""
-    return load_shared(__name__ + "_native", "runtime/native.py")
-
-
 def random_scenarios(cfg: EngineConfig, n: int, seed: int = 0,
                      n_patches: int = 4, dtype=torch.float32,
                      use_native: bool | None = None,
-                     device=None) -> Scenario:
-    """Randomized slippery-patch navigation scenarios."""
+                     device="cuda") -> Scenario:
+    """Randomized slippery-patch navigation scenarios, on the card unless
+    `device` says otherwise."""
+    device = resolve_device(device)
     def t(v):
         return torch.as_tensor(np.asarray(v), device=device).to(dtype)
 
     zeros = dict(spawn_xy=torch.zeros((n, 2), dtype=dtype, device=device),
                  spawn_yaw=torch.zeros(n, dtype=dtype, device=device))
     if use_native is None:
-        use_native = native().available()
+        use_native = native.available()
     if use_native:
-        gen = native()
+        gen = native
         mu = gen.terrains(n, cfg.sim.terrain_res, cfg.sim.terrain_extent,
                           cfg.sim.mu_default, n_patches, seed=seed + 1)
         return Scenario(mu_map=t(mu),

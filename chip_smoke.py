@@ -30,7 +30,30 @@ Phases; each raises on failure, so any failure exits non-zero:
      float32 run (tests/data/loop_golden.npz);
  10. timing: closed-loop scenario-ticks/s, a torch.profiler breakdown of
      the tick (launches, share of device time in the SPD kernels, device
-     idle share), the SPD kernels against their plain versions.
+     idle share), the SPD kernels against their plain versions and their
+     library calls (cholesky_ex, cholesky_solve);
+ 11. build: the fused Riccati passes (csrc/fused_riccati.cu) and the
+     rebuilt spd_chol (with chol_solve), built with nvcc together with the
+     others in phase 2 (timed, ptxas lines);
+ 12. the new kernels vs their plain versions on the card: the three fused
+     passes (ops/cuda_riccati.plain_*) at B in {4, 130, 2048}, H=20,
+     13/12/24, masks all on, mixed and all off; chol_solve at n=12,
+     k in {1, 13}, B in {1, 64, 2048} and a non-SPD lane;
+ 13. the paths: planner.plan with backend "riccati_fused" on bench.py's
+     problem (B=2048, H=20), cold and warm, against the plain scan, with
+     the three kernels' launch counts, and its base_box reroute to the
+     resident kernel; the scan with use_pallas (B=256) through chol_solve;
+     the condensed backend (B=256) against the resident plan; the fused
+     plan against the JAX golden;
+ 14. timing: fused plan solves/s beside the resident kernel's, launches a
+     fused plan, each fused pass and chol_solve (device time and CUDA
+     events) beside its plain version and, for chol_solve, torch.linalg.
+     solve; the condensed plan.
+Every kernel's record carries its least possible time on this card
+(`bound_ms`: the larger of its bytes over 3.35 TB/s and its float32
+operations over 67 TFLOP/s, counted from this run's inputs and, for the
+resident IPM, the iterations its lanes ran) and the time of one PyTorch
+call computing the same function where there is one (`library_ms`).
 The last two lines are the kernels' JSON record and the device JSON line.
 Uses no JAX: the card's machine has none.
 """
@@ -43,11 +66,75 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+# H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W)
+PEAK_BYTES = 3.35e12          # HBM3, bytes/s
+PEAK_FP32 = 67e12             # float32 outside the tensor cores, flop/s
 
 
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
+
+
+def bound(nbytes, flops):
+    """(least time in ms, "bytes" or "operations") for work that moves
+    `nbytes` and does `flops` float32 operations."""
+    tb, tf = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def knot_flops(nx, nu, m):
+    """float32 operations (a multiply-add counts 2) of one knot of each
+    Riccati pass, as the kernels and the plain versions compute them:
+    (rollout and residuals, factorization, one vector pass)."""
+    rollout = 2 * (nx * nx + nx * nu              # x_{k+1} = A x + B u
+                   + 2 * nx * nx                  # Q x, A' lam
+                   + nu * nu + nx * nu + m * nu   # rx = R u + B' lam + G' z
+                   + m * nu)                      # gu = G u
+    factor = 2 * (nu * nx * nx + nx ** 3          # B'P, A'P
+                  + nu * (nu + 1) // 2 * (m + nx)  # M, lower triangle
+                  + nu * nx * nx                  # B'PA
+                  + nu ** 3 // 6                  # Cholesky
+                  + nx * nu * nu                  # K: two substitutions
+                  + nx * nx * (nx + nu))          # P update
+    vector = 2 * (m * nu + nx * nu + nu * nu      # g, kff (backward)
+                  + nx * nx + nu * nx             # sv
+                  + nu * nx + m * nu              # du, gdu (forward)
+                  + nx * nx + nx * nu)            # dx
+    return rollout, factor, vector
+
+
+def call_ms(fn, reps=50):
+    """(CUDA-event ms, profiler device ms) of one call of fn, means over
+    `reps` back-to-back calls after one warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    event_ms = start.elapsed_time(end) / reps
+    # now and then a profiling window comes back without device events
+    # (a whole call at 0 ms): profile again, and after three empty windows
+    # let the CUDA-event time stand in, saying so
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev_us = sum(e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+        if dev_us > 0:
+            return event_ms, dev_us / 1e3 / reps
+    print("[time] the profiler recorded no device time in three windows: "
+          "the CUDA-event time stands in for the device time", flush=True)
+    return event_ms, event_ms
 
 
 def print_ptxas(kernels, name):
@@ -66,7 +153,7 @@ def closed_loop(dev, card, build_spd_s):
                                                 WbcConfig)
     from apf_quadruped_tpu_torch.ops import chol, cuda_chol, cuda_riccati
     from apf_quadruped_tpu_torch.ops import qpsolve
-    from apf_quadruped_tpu_torch.runtime import loop, sweep
+    from apf_quadruped_tpu_torch.runtime import loop, native, sweep
     from apf_quadruped_tpu_torch.sim import terrain
 
     f32 = torch.float32
@@ -206,10 +293,10 @@ def closed_loop(dev, card, build_spd_s):
     # (b) the main path: sweep.run_batch at the CLI's sweep configuration
     cfg = sweep.cli_config()
     Bs, cycles = 64, 2
-    native = sweep.native().available()
     scn = sweep.random_scenarios(cfg, Bs, seed=0, device=dev)
     print(f"[loop] scenarios from the "
-          f"{'native C++' if native else 'numpy'} generator", flush=True)
+          f"{'native C++' if native.available() else 'numpy'} generator",
+          flush=True)
     ticks = Bs * cycles * int(round(cfg.gait.trot_cycle / cfg.sim.dt))
     cuda_chol.chol_factor.launches = cuda_chol.chol_sub.launches = 0
     cuda_riccati.solve_stage_qp_resident.launches = 0
@@ -311,61 +398,382 @@ def closed_loop(dev, card, build_spd_s):
           f"{d20 / 20e3:.3f} ms a tick against {1e3 * wall / (ticks / Bs):.2f}"
           f" ms a tick unprofiled", flush=True)
 
-    # the kernels against their plain versions: CUDA events over 50
+    # the kernels against their plain versions and their library calls
+    # (cholesky_ex; cholesky_solve on the factor): CUDA events over 50
     # back-to-back calls (at these sizes the device waits for the host's
     # issue, so this is the call's cost to a caller), and the device time
     # of the call's kernels under the profiler (the kernels' own cost)
-    def call_ms(fn, reps=50):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        dev_us = sum(e.self_device_time_total for e in prof.key_averages()
-                     if e.device_type == torch.autograd.DeviceType.CUDA)
-        return start.elapsed_time(end) / reps, dev_us / 1e3 / reps
-
     times = {}
     n = 30
     for B in (64, 1024):
         H = torch.as_tensor(spd(B, n), dtype=f32, device=dev)
         F = cuda_chol.chol_factor(H)
         Fp = chol.plain_factor(H)
-        times[("factor", B, 0)] = (call_ms(lambda: cuda_chol.chol_factor(H)),
-                                   call_ms(lambda: chol.plain_factor(H)))
+        times[("factor", B, 0)] = (
+            call_ms(lambda: cuda_chol.chol_factor(H)),
+            call_ms(lambda: chol.plain_factor(H)),
+            call_ms(lambda: torch.linalg.cholesky_ex(H)))
         for k in (1, 30):
             r = torch.as_tensor(rng.normal(size=(B, n, k)), dtype=f32,
                                 device=dev)
             times[("sub", B, k)] = (
                 call_ms(lambda: cuda_chol.chol_sub(*F, r)),
-                call_ms(lambda: chol.plain_solve(*Fp, r)))
-    for (kind, B, k), ((ms, dms), (pms, pdms)) in times.items():
+                call_ms(lambda: chol.plain_solve(*Fp, r)),
+                call_ms(lambda: torch.cholesky_solve(r, Fp[0])))
+    for (kind, B, k), ((ms, dms), (pms, pdms), (lms, ldms)) in times.items():
         print(f"[time] {card}: spd {kind} B={B} n={n}"
               f"{f' k={k}' if k else ''}: device time a call, kernel "
-              f"{dms:.4f} ms, plain {pdms:.4f} ms; a call by CUDA events "
-              f"(host-bound), kernel {ms:.4f} ms, plain {pms:.4f} ms "
-              f"(means of 50)", flush=True)
+              f"{dms:.4f} ms, plain {pdms:.4f} ms, library {ldms:.4f} ms; a "
+              f"call by CUDA events (host-bound), kernel {ms:.4f} ms, plain "
+              f"{pms:.4f} ms, library {lms:.4f} ms (means of 50)",
+              flush=True)
 
     src = "apf_quadruped_tpu_torch/csrc/spd_chol.cu"
+    B = 64
+    bf = bound(4 * B * (2 * n * n + n), B * n ** 3 / 3)
+    bs = bound(4 * B * (n * n + n + 2 * n), B * 2 * n * n)
+    print(f"[bound] {card}: spd factor B={B} n={n}: {bf[0]:.6f} ms "
+          f"({bf[1]}); sub k=1: {bs[0]:.6f} ms ({bs[1]}): the launch floor, "
+          f"not these, sets their time", flush=True)
     return [
         {"name": "spd_chol_factor", "route": "cuda", "source": src,
          "replaces": "apf_quadruped_tpu/ops/pallas_chol.py:130",
          "launches": launches["spd_chol_factor"], "max_abs_err": err_f,
-         "ms": times[("factor", 64, 0)][0][1],
-         "plain_ms": times[("factor", 64, 0)][1][1]},
+         "ms": times[("factor", B, 0)][0][1],
+         "plain_ms": times[("factor", B, 0)][1][1],
+         "bound_ms": bf[0], "bound_by": bf[1],
+         "library_ms": times[("factor", B, 0)][2][1]},
         {"name": "spd_chol_sub", "route": "cuda", "source": src,
          "replaces": "apf_quadruped_tpu/ops/pallas_chol.py:158",
          "launches": launches["spd_chol_sub"], "max_abs_err": err_s,
-         "ms": times[("sub", 64, 1)][0][1],
-         "plain_ms": times[("sub", 64, 1)][1][1]}]
+         "ms": times[("sub", B, 1)][0][1],
+         "plain_ms": times[("sub", B, 1)][1][1],
+         "bound_ms": bs[0], "bound_by": bs[1],
+         "library_ms": times[("sub", B, 1)][2][1]}]
+
+
+def fused_slice(dev, card, build_s, golden, compare_solve, x0, refs, x1,
+                refs1, plain_cold, rate_resident):
+    """Phases 11-14; returns the four new kernels' JSON records."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from apf_quadruped_tpu_torch import _kernels, planner, problems
+    from apf_quadruped_tpu_torch.config import (EngineConfig, MpcConfig,
+                                                SolverConfig)
+    from apf_quadruped_tpu_torch.ops import chol, cuda_chol
+    from apf_quadruped_tpu_torch.ops import cuda_riccati as cr
+    from apf_quadruped_tpu_torch.ops import riccati
+
+    f32 = torch.float32
+    rng = np.random.default_rng(3)
+    passes = (cr.fused_rollout, cr.fused_factor, cr.fused_vector)
+
+    def counts():
+        return tuple(f.launches for f in passes)
+
+    # ---- 11. build ----------------------------------------------------------
+    print(f"[build] fused_riccati built in {build_s['fused_riccati']:.1f} s, "
+          f"spd_chol (with chol_solve) in {build_s['spd_chol']:.1f} s, in "
+          f"parallel with resident_ipm (phase 2)", flush=True)
+    print_ptxas(_kernels, "fused_riccati")
+    print_ptxas(_kernels, "spd_chol")
+
+    # ---- 12. the new kernels vs their plain versions ------------------------
+    # gate: 1e-5 relative to the largest entry of the plain version's
+    # output, as the SPD gate: the same float32 arithmetic summed in
+    # another order, on well-conditioned input
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    def pass_data(B, mask_frac, H=20, nx=13, nu=12, m=24):
+        d = problems.random_stage_qp(rng, B=B, H=H, NX=nx, NU=nu, M=m,
+                                     mask_frac=mask_frac, diag_q=False)
+        t = {k: torch.as_tensor(v, device=dev) for k, v in d.items()}
+
+        def rnd(*shape, lo=None, hi=None):
+            v = (rng.uniform(lo, hi, shape) if lo is not None
+                 else rng.normal(size=shape))
+            return torch.as_tensor(v, dtype=f32, device=dev)
+        mask = t["mask"]
+        t.update(u=rnd(B, H, nu), zm=mask * rnd(B, H, m, lo=0.1, hi=2.0),
+                 W=mask * rnd(B, H, m, lo=0.1, hi=10.0), rx=rnd(B, H, nu),
+                 vm=mask * rnd(B, H, m),
+                 Rreg=t["R"] + 1e-6 * torch.eye(nu, dtype=f32, device=dev))
+        return t
+
+    def pass_args(d):
+        roll = (d["G"], d["R"], d["Q"], d["A"], d["B"], d["qlin"], d["u"],
+                d["zm"], d["x0"])
+        fac = (d["G"], d["Rreg"], d["Q"], d["A"], d["B"], d["W"])
+        return roll, fac
+
+    err = {"rollout": 0.0, "factor": 0.0, "vector": 0.0, "chol_solve": 0.0}
+    for B in (4, 130, 2048):
+        for mask_frac in (1.0, 0.6, 0.0):
+            d = pass_data(B, mask_frac)
+            roll, fac = pass_args(d)
+            F = cr.fused_factor(*fac)
+            vec = (d["G"], d["A"], d["B"], *F, d["rx"], d["vm"])
+            worst = {}
+            for name, out, ref in (
+                    ("rollout", cr.fused_rollout(*roll), cr.plain_rollout(*roll)),
+                    ("factor", F, cr.plain_factor_pass(*fac)),
+                    ("vector", cr.fused_vector(*vec),
+                     cr.plain_vector_pass(*vec))):
+                torch.cuda.synchronize()
+                worst[name] = max(rel(a, b) for a, b in zip(out, ref))
+                err[name] = max(err[name], max(float((a - b).abs().max())
+                                               for a, b in zip(out, ref)))
+            print(f"[fused] B={B} H=20 13/12/24 masks {mask_frac:.1f}: rel "
+                  f"err rollout {worst['rollout']:.2e}, factor "
+                  f"{worst['factor']:.2e}, vector {worst['vector']:.2e} "
+                  f"(gate 1e-5)", flush=True)
+            check(max(worst.values()) <= 1e-5, f"fused passes B={B} masks "
+                  f"{mask_frac} within 1e-5 of their plain versions")
+            check(bool((torch.triu(F[0], 1) == 0).all()),
+                  "fused factor L has exact zeros above the diagonal")
+
+    def spd(B, n):
+        A = rng.normal(size=(B, n, n))
+        return torch.as_tensor(A @ A.transpose(0, 2, 1) + n * np.eye(n),
+                               dtype=f32, device=dev)
+
+    for B in (1, 64, 2048):
+        M = spd(B, 12)
+        for k in (1, 13):
+            r = torch.as_tensor(rng.normal(size=(B, 12, k)), dtype=f32,
+                                device=dev)
+            X = cuda_chol.chol_solve(M, r)
+            Xp = chol.plain_chol_solve(M, r)
+            torch.cuda.synchronize()
+            e = rel(X, Xp)
+            err["chol_solve"] = max(err["chol_solve"],
+                                    float((X - Xp).abs().max()))
+            print(f"[chol_solve] n=12 k={k} B={B}: rel err {e:.2e} (gate "
+                  f"1e-5)", flush=True)
+            check(e <= 1e-5, f"chol_solve B={B} k={k} within 1e-5")
+    M = spd(5, 12)
+    M[2, 4, 4] = -3.0
+    X = cuda_chol.chol_solve(M, torch.ones(5, 12, 13, device=dev))
+    Xp = chol.plain_chol_solve(M, torch.ones(5, 12, 13, device=dev))
+    nan_ok = bool(X[2].isnan().all() & Xp[2].isnan().all())
+    fin_ok = bool(X[[0, 1, 3, 4]].isfinite().all())
+    print(f"[chol_solve] non-SPD lane NaN from kernel and plain {nan_ok}, "
+          f"other lanes finite {fin_ok}", flush=True)
+    check(nan_ok and fin_ok, "chol_solve's non-SPD lane is NaN, the rest "
+          "finite")
+
+    # ---- 13. the paths --------------------------------------------------------
+    B, H = x0.shape[0], 20
+    mpc = dict(horizon=H, dt=0.025)
+    cfg_f = EngineConfig(mpc=MpcConfig(**mpc, backend="riccati_fused"),
+                         solver=SolverConfig())
+    check(planner.effective_backend(cfg_f, dev) == "riccati_fused",
+          "riccati_fused resolves to itself")
+    for f in passes:
+        f.launches = 0
+    torch.cuda.synchronize()
+    cold = planner.plan(cfg_f, x0, refs)
+    torch.cuda.synchronize()
+    plan_launches = counts()
+    print(f"[fused] main path: plan(backend='riccati_fused') B={B} H={H} "
+          f"cold: launches rollout/factor/vector {plan_launches}", flush=True)
+    check(all(n > 0 for n in plan_launches), "the fused plan launched each "
+          "of the three kernels")
+    conv = float(cold.sol.converged.float().mean())
+    agree = ((cold.sol.iters == plain_cold.sol.iters)
+             & (cold.sol.converged == plain_cold.sol.converged))
+    df = float((cold.forces - plain_cold.forces).abs()[agree].max())
+    ftol = 1e-3 * max(1.0, float(plain_cold.forces.abs().max()))
+    print(f"[fused] cold plan: converged {conv:.4f}, converged/iters agree "
+          f"with the plain plan on {float(agree.float().mean()):.4f} of "
+          f"lanes, max|dforce| {df:.3g} (tol {ftol:.3g})", flush=True)
+    check(conv >= 0.99 and float(agree.float().mean()) >= 0.995
+          and df <= ftol, "fused plan agrees with the plain plan")
+    # phase 3's production-shape gate on the plan's stage QP, in units of
+    # its largest force (planner forces are O(100) N, phase 3's u O(1))
+    qp = planner.stage_qp(cfg_f, x0, refs)
+    scale = max(1.0, float(plain_cold.forces.abs().max()))
+    compare_solve(cr.solve_stage_qp_fused, qp, cfg_f.solver, None,
+                  f"fused stage QP of the plan B={B} H={H} cold",
+                  2e-4 * scale, 0.995)
+    warm = riccati.WarmStart(u=cold.forces.reshape(B, H, 12),
+                             z=cold.sol.z.reshape(B, H, -1),
+                             s=cold.sol.s.reshape(B, H, -1),
+                             valid=torch.ones(B, dtype=torch.bool, device=dev))
+    compare_solve(cr.solve_stage_qp_fused, planner.stage_qp(cfg_f, x1, refs1),
+                  cfg_f.solver, warm,
+                  f"fused stage QP of the plan B={B} H={H} warm replan",
+                  2e-4 * scale, 0.995)
+    replan = planner.plan(cfg_f, x1, refs1, warm=warm)
+    print(f"[fused] warm replan: converged "
+          f"{float(replan.sol.converged.float().mean()):.4f}, mean iters "
+          f"{float(replan.sol.iters.float().mean()):.3f} (cold "
+          f"{float(cold.sol.iters.float().mean()):.3f})", flush=True)
+    check(float(replan.sol.converged.float().mean()) >= 0.99
+          and float(replan.sol.iters.float().mean())
+          < float(cold.sol.iters.float().mean()), "fused warm replan")
+    # base_box: the fused passes have no state rows -> the resident kernel
+    cfg_fb = EngineConfig(mpc=MpcConfig(**mpc, backend="riccati_fused",
+                                        base_box=True), solver=SolverConfig())
+    r0, f0 = cr.solve_stage_qp_resident.launches, counts()
+    boxed = planner.plan(cfg_fb, x0, refs)
+    torch.cuda.synchronize()
+    rerouted = (cr.solve_stage_qp_resident.launches == r0 + 1
+                and counts() == f0)
+    print(f"[fused] base_box plan rerouted to the resident kernel "
+          f"{rerouted}, converged "
+          f"{float(boxed.sol.converged.float().mean()):.4f}", flush=True)
+    check(rerouted, "riccati_fused + base_box runs the resident kernel")
+    golden(cfg_f, " fused")
+
+    # the scan with use_pallas: every 12x12 solve through chol_solve
+    Bp = 256
+    xp, refs_p = x0[:Bp], refs._replace(**{
+        k: v[:Bp] for k, v in refs._asdict().items() if v is not None})
+    cfg_s = EngineConfig(mpc=MpcConfig(**mpc, backend="riccati"),
+                         solver=SolverConfig())
+    cfg_sp = dataclasses.replace(cfg_s, solver=SolverConfig(use_pallas=True))
+    cuda_chol.chol_solve.launches = 0
+    torch.cuda.synchronize()
+    out_p = planner.plan(cfg_sp, xp, refs_p)
+    torch.cuda.synchronize()
+    solve_launches = cuda_chol.chol_solve.launches
+    out_s = planner.plan(cfg_s, xp, refs_p)
+    agree = (out_p.sol.iters == out_s.sol.iters) & (
+        out_p.sol.converged == out_s.sol.converged)
+    df = float((out_p.forces - out_s.forces).abs()[agree].max())
+    ftol = 1e-3 * max(1.0, float(out_s.forces.abs().max()))
+    print(f"[pallas] main path: plan(backend='riccati', use_pallas=True) "
+          f"B={Bp} H={H}: {solve_launches} chol_solve launches, converged "
+          f"{float(out_p.sol.converged.float().mean()):.4f}, iters agree with "
+          f"use_pallas=False on {float(agree.float().mean()):.4f} of lanes, "
+          f"max|dforce| {df:.3g} (tol {ftol:.3g})", flush=True)
+    check(solve_launches > 0, "use_pallas launched chol_solve")
+    check(float(agree.float().mean()) >= 0.995 and df <= ftol,
+          "use_pallas agrees with the default path")
+
+    # the condensed backend against the resident plan, at the solver
+    # tolerance the cross-backend gates need (the JAX suite's gates,
+    # tests/test_planner.py: states within 5e-3, per-knot force sums 5 N)
+    sol_c = SolverConfig(iters=40, reltol=1e-6, abstol=1e-5)
+    cfg_c = EngineConfig(mpc=MpcConfig(**mpc, backend="condensed"),
+                         solver=sol_c)
+    cfg_r = EngineConfig(mpc=MpcConfig(**mpc), solver=sol_c)
+    out_c = planner.plan(cfg_c, xp, refs_p)
+    out_r = planner.plan(cfg_r, xp, refs_p)
+    both = out_c.sol.converged & out_r.sol.converged
+    dxs = float((out_c.states - out_r.states).abs()[both].max())
+    dfs = float((out_c.forces.sum(-2) - out_r.forces.sum(-2)).abs()[both]
+                .max())
+    print(f"[condensed] plan B={Bp} H={H} (n=240): converged "
+          f"{float(out_c.sol.converged.float().mean()):.4f} (resident "
+          f"{float(out_r.sol.converged.float().mean()):.4f}), max|dstate| "
+          f"{dxs:.3g} (gate 5e-3), max|d sum of forces| {dfs:.3g} N (gate 5)",
+          flush=True)
+    check(float(both.float().mean()) >= 0.99, "condensed and resident "
+          "converged")
+    check(dxs <= 5e-3 and dfs <= 5.0, "condensed agrees with resident")
+
+    # ---- 14. timing -------------------------------------------------------
+    rates = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(5):
+            planner.plan(cfg_f, x0, refs)
+        torch.cuda.synchronize()
+        rates.append(B * 5 / (time.perf_counter() - t))
+    rate_f = float(np.median(rates))
+    print(f"[time] {card}: plan B={B} H={H} cold: fused {rate_f:.1f} "
+          f"solves/s, resident {rate_resident:.1f} solves/s (phase 6), "
+          f"median of 3 bursts; {sum(plan_launches)} fused kernel launches "
+          f"a plan {plan_launches}", flush=True)
+
+    d = pass_data(B, 0.6)
+    roll, fac = pass_args(d)
+    F = cr.fused_factor(*fac)
+    vec = (d["G"], d["A"], d["B"], *F, d["rx"], d["vm"])
+    nx, nu, m = 13, 12, 24
+    f_roll, f_fac, f_vec = knot_flops(nx, nu, m)
+    knot_in = nx * nx + nx * nu                      # A_k, B_k
+    works = {
+        "rollout": (lambda: cr.fused_rollout(*roll),
+                    lambda: cr.plain_rollout(*roll),
+                    4 * B * (H * (knot_in + nx + nu + m + nx + nu + m) + nx),
+                    B * H * f_roll),
+        "factor": (lambda: cr.fused_factor(*fac),
+                   lambda: cr.plain_factor_pass(*fac),
+                   4 * B * H * (knot_in + m + nu * nu + nu + nu * nx),
+                   B * H * f_fac),
+        "vector": (lambda: cr.fused_vector(*vec),
+                   lambda: cr.plain_vector_pass(*vec),
+                   4 * B * H * (knot_in + nu * nu + nu + nu * nx + nu + m
+                                + nu + m),
+                   B * H * f_vec)}
+    rec = {}
+    for name, (kern, plain, nbytes, flops) in works.items():
+        (ms, dms), (pms, pdms) = call_ms(kern, 20), call_ms(plain, 5)
+        b = bound(nbytes, flops)
+        rec[name] = (dms, pdms, b, None)
+        print(f"[time] {card}: fused {name} B={B} H={H}: device time "
+              f"{dms:.4f} ms (plain {pdms:.4f} ms), CUDA events {ms:.4f} ms "
+              f"(plain {pms:.4f} ms); bound {b[0]:.4f} ms ({b[1]}: "
+              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP), kernel at "
+              f"{100 * b[0] / dms:.2f}% of bound", flush=True)
+
+    Bc, n = 2048, 12
+    M = spd(Bc, n)
+    for k in (13, 1):
+        r = torch.as_tensor(rng.normal(size=(Bc, n, k)), dtype=f32,
+                            device=dev)
+        (ms, dms), (pms, pdms), (lms, ldms) = (
+            call_ms(lambda: cuda_chol.chol_solve(M, r)),
+            call_ms(lambda: chol.plain_chol_solve(M, r)),
+            call_ms(lambda: torch.linalg.solve(M, r)))
+        b = bound(4 * Bc * (n * n + 2 * n * k),
+                  Bc * (n ** 3 / 3 + 2 * n * n * k))
+        if k == 13:
+            rec["chol_solve"] = (dms, pdms, b, ldms)
+        print(f"[time] {card}: chol_solve B={Bc} n={n} k={k}: device time "
+              f"{dms:.4f} ms, plain {pdms:.4f} ms, torch.linalg.solve "
+              f"{ldms:.4f} ms; CUDA events {ms:.4f} / {pms:.4f} / {lms:.4f} "
+              f"ms; bound {b[0]:.6f} ms ({b[1]})", flush=True)
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(3):
+        planner.plan(cfg_c, xp, refs_p)
+    torch.cuda.synchronize()
+    ms_c = (time.perf_counter() - t) / 3 * 1e3
+    print(f"[time] {card}: condensed plan B={Bp} H={H} (n=240, "
+          f"SolverConfig(iters=40, reltol=1e-6, abstol=1e-5)): {ms_c:.2f} ms "
+          f"a plan, {Bp / ms_c * 1e3:.1f} solves/s (mean of 3, host clock)",
+          flush=True)
+
+    src = "apf_quadruped_tpu_torch/csrc/fused_riccati.cu"
+    out = []
+    for name, line, launches in (("rollout", 135, plan_launches[0]),
+                                 ("factor", 185, plan_launches[1]),
+                                 ("vector", 234, plan_launches[2])):
+        dms, pdms, b, lib = rec[name]
+        out.append({"name": f"fused_{name}", "route": "cuda", "source": src,
+                    "replaces": f"apf_quadruped_tpu/ops/pallas_riccati.py:"
+                                f"{line}",
+                    "launches": launches, "max_abs_err": err[name],
+                    "ms": dms, "plain_ms": pdms, "bound_ms": b[0],
+                    "bound_by": b[1], "library_ms": lib})
+    dms, pdms, b, lib = rec["chol_solve"]
+    out.append({"name": "chol_solve", "route": "cuda",
+                "source": "apf_quadruped_tpu_torch/csrc/spd_chol.cu",
+                "replaces": "apf_quadruped_tpu/ops/pallas_chol.py:37",
+                "launches": solve_launches, "max_abs_err": err["chol_solve"],
+                "ms": dms, "plain_ms": pdms, "bound_ms": b[0],
+                "bound_by": b[1], "library_ms": lib})
+    return out
 
 
 def main():
@@ -398,11 +806,12 @@ def main():
         return time.perf_counter() - t
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    libs = ("resident_ipm", "spd_chol", "fused_riccati")
+    with ThreadPoolExecutor(len(libs)) as pool:
         builds = {name: pool.submit(timed, getattr(_kernels, name))
-                  for name in ("resident_ipm", "spd_chol")}
+                  for name in libs}
         build_s = {name: f.result() for name, f in builds.items()}
-    print(f"[build] resident_ipm and spd_chol built in parallel in "
+    print(f"[build] {', '.join(libs)} built in parallel in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     print_ptxas(_kernels, "resident_ipm")
 
@@ -422,8 +831,15 @@ def main():
                                generator=torch.Generator(dev).manual_seed(1))
             warm = riccati.WarmStart(u=cold.u, z=cold.z, s=cold.s,
                                      valid=valid < warm_frac)
+        err = compare_solve(cuda_riccati.solve_stage_qp_resident, qp, cfg_s,
+                            warm, tag, atol, min_frac)
+        max_err = max(max_err, err)
+
+    def compare_solve(solver, qp, cfg_s, warm, tag, atol, min_frac):
+        """`solver` against the plain version on the card; returns the
+        largest |du|, |dx| over the lanes compared."""
         ref = riccati.solve_stage_qp(qp, cfg_s, warm)
-        out = cuda_riccati.solve_stage_qp_resident(qp, cfg_s, warm)
+        out = solver(qp, cfg_s, warm)
         torch.cuda.synchronize()
         agree = (out.iters == ref.iters) & (out.converged == ref.converged)
         # u/x are compared where both converged at the same iteration: an
@@ -434,7 +850,6 @@ def main():
         frac = float(agree.float().mean())
         within = float((err <= atol).float().mean())
         conv = float(ref.converged.float().mean())
-        max_err = max(max_err, float(err.max()))
         print(f"[kernel] {tag}: conv {conv:.3f}, iters mismatches "
               f"{int((~agree).sum())}/{agree.numel()}, max|du|,|dx| "
               f"{float(err.max()):.3g}, lanes beyond atol {atol:g}: "
@@ -463,6 +878,7 @@ def main():
                   flush=True)
             check(worst <= atol, f"{tag}: kernel within 10x the plain "
                   f"version's float32 error on every lane")
+        return float(err.max())
 
     # B=4: the JAX suite's own 5e-5 gate; B=130: its lane-boundary test's
     # 1e-4 (tests/test_pallas_riccati.py), f32 rounding over more lanes;
@@ -493,28 +909,36 @@ def main():
     cfg = EngineConfig(mpc=MpcConfig(horizon=20, dt=0.025),
                        solver=SolverConfig())
     g = np.load(ROOT / "tests" / "data" / "plan_golden.npz")
-    warm = convert.warm_start({"u": g["warm_u"], "z": g["warm_z"],
-                               "s": g["warm_s"], "valid": g["warm_valid"]},
-                              dev)
-    for tag, w in (("cold", None), ("warm", warm)):
-        refs = convert.mpc_refs({k: g[f"{tag}_{k}"] for k in
-                                 ("contacts", "feet_w", "x_ref", "yaw_ref")},
+    warm_g = convert.warm_start({"u": g["warm_u"], "z": g["warm_z"],
+                                 "s": g["warm_s"], "valid": g["warm_valid"]},
                                 dev)
-        out = planner.plan(cfg, convert.tensor(g[f"{tag}_x0"], dev), refs,
-                           warm=w)
-        f_ref = g[f"{tag}_forces"]
-        df = float(np.abs(convert.to_numpy(out.forces) - f_ref).max())
-        dxs = float(np.abs(convert.to_numpy(out.states)
-                           - g[f"{tag}_states"]).max())
-        ftol = 1e-3 * max(1.0, float(np.abs(f_ref).max()))
-        print(f"[golden] {tag}: iters {convert.to_numpy(out.sol.iters)} vs "
-              f"JAX {g[f'{tag}_iters']}, max|dforce| {df:.3g} (tol "
-              f"{ftol:.3g}), max|dstate| {dxs:.3g} (tol 1e-4)", flush=True)
-        check(np.array_equal(convert.to_numpy(out.sol.converged),
-                             g[f"{tag}_converged"]), f"golden {tag} converged")
-        check(np.array_equal(convert.to_numpy(out.sol.iters),
-                             g[f"{tag}_iters"]), f"golden {tag} iters")
-        check(df <= ftol and dxs <= 1e-4, f"golden {tag} forces/states")
+
+    def golden(cfg_g, label=""):
+        for tag, w in (("cold", None), ("warm", warm_g)):
+            refs = convert.mpc_refs({k: g[f"{tag}_{k}"] for k in
+                                     ("contacts", "feet_w", "x_ref",
+                                      "yaw_ref")}, dev)
+            out = planner.plan(cfg_g, convert.tensor(g[f"{tag}_x0"], dev),
+                               refs, warm=w)
+            f_ref = g[f"{tag}_forces"]
+            df = float(np.abs(convert.to_numpy(out.forces) - f_ref).max())
+            dxs = float(np.abs(convert.to_numpy(out.states)
+                               - g[f"{tag}_states"]).max())
+            ftol = 1e-3 * max(1.0, float(np.abs(f_ref).max()))
+            print(f"[golden]{label} {tag}: iters "
+                  f"{convert.to_numpy(out.sol.iters)} vs JAX "
+                  f"{g[f'{tag}_iters']}, max|dforce| {df:.3g} (tol "
+                  f"{ftol:.3g}), max|dstate| {dxs:.3g} (tol 1e-4)", flush=True)
+            check(np.array_equal(convert.to_numpy(out.sol.converged),
+                                 g[f"{tag}_converged"]),
+                  f"golden{label} {tag} converged")
+            check(np.array_equal(convert.to_numpy(out.sol.iters),
+                                 g[f"{tag}_iters"]),
+                  f"golden{label} {tag} iters")
+            check(df <= ftol and dxs <= 1e-4,
+                  f"golden{label} {tag} forces/states")
+
+    golden(cfg)
 
     # ---- 5. the main path -----------------------------------------------------
     B, H = 2048, cfg.mpc.horizon
@@ -596,14 +1020,36 @@ def main():
     print(f"[time] {card}: stage-QP solve B={B} H={H}: kernel {ms_k:.3f} ms, "
           f"plain {ms_p:.3f} ms (CUDA events)", flush=True)
 
+    # the bound of this solve: this run's bytes, and the operations of
+    # the iterations its lanes ran (a lane leaves the loop once converged:
+    # `iters` full iterations and iters + 2 rollout/residual sweeps, one
+    # fewer where it never converged)
+    its = out_k.sol.iters.double()
+    sweeps = its + 1.0 + out_k.sol.converged.double()
+    nx, nu, m = 13, 12, 24
+    f_roll, f_fac, f_vec = knot_flops(nx, nu, m)
+    flops = H * float((its * (f_fac + 2 * f_vec) + sweeps * f_roll).sum())
+    nbytes = 4 * B * (H * (nx * nx + nx * nu + nx + 2 * m)   # A, B, q, mask, h
+                      + nx                                   # x0
+                      + H * (nu + nx + 2 * m) + 4)           # u, x, z, s, stat
+    b_res = bound(nbytes, flops)
+    print(f"[bound] {card}: resident IPM B={B} H={H}: {flops / 1e9:.3f} "
+          f"GFLOP over {float(its.sum()):.0f} lane-iterations, "
+          f"{nbytes / 1e6:.1f} MB: bound {b_res[0]:.4f} ms ({b_res[1]}) "
+          f"against {ms_k:.3f} ms, {100 * b_res[0] / ms_k:.2f}% of bound",
+          flush=True)
+
     chol = closed_loop(dev, card, build_s["spd_chol"])
+    fused = fused_slice(dev, card, build_s, golden, compare_solve, x0, refs,
+                        x1, refs1, ref, rate_k)
 
     print(json.dumps({"kernels": [{
         "name": "resident_ipm", "route": "cuda",
         "source": "apf_quadruped_tpu_torch/csrc/resident_ipm.cu",
         "replaces": "apf_quadruped_tpu/ops/pallas_riccati.py:551",
         "launches": launches, "max_abs_err": max_err, "ms": ms_k,
-        "plain_ms": ms_p}] + chol}))
+        "plain_ms": ms_p, "bound_ms": b_res[0], "bound_by": b_res[1],
+        "library_ms": None}] + chol + fused}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

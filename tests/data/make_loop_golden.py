@@ -58,7 +58,7 @@ def run(dtype_name: str, path: str):
                                            abstol=1e-2),
                        wbc=WbcConfig(slack_weight_trot=1e6))
     scn = sweep.random_scenarios(cfg, B, seed=SEED, dtype=dtype,
-                                 use_native=False)
+                                 use_native=False, device="cpu")
     states, metrics = sweep.step_batch(cfg, scn, sweep.init_batch(cfg, scn),
                                        CYCLES)
     res = sweep.run_batch(cfg, scn, CYCLES)

@@ -33,7 +33,7 @@ def main():
     data = {}
     warm = None
     for tag, seed in (("cold", 0), ("warm", 1)):
-        x0, refs = problems.bench_problem(cfg, B, seed=seed)
+        x0, refs = problems.bench_problem(cfg, B, seed=seed, device="cpu")
         x0, refs = convert.to_numpy(x0), convert.to_numpy(refs)
         jrefs = jplanner.MpcRefs(contacts=jnp.asarray(refs.contacts),
                                  feet_w=jnp.asarray(refs.feet_w),

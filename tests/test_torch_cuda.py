@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain versions, on the card: the
-resident IPM (csrc/resident_ipm.cu) and the SPD factor / substitution
-(csrc/spd_chol.cu).
+resident IPM (csrc/resident_ipm.cu), the SPD factor / substitution /
+factor-and-solve (csrc/spd_chol.cu) and the fused Riccati passes
+(csrc/fused_riccati.cu).
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no JAX (the GPU machine has none) and takes its seed from its own
@@ -255,7 +256,10 @@ def test_spd_kernels_batch_shapes_and_strides(rng, dev):
 
 def test_spd_kernels_reject_what_they_do_not_take(rng, dev):
     with pytest.raises(ValueError, match="n <= 64"):
-        chol.spd_factor(_spd(rng, 2, 65, dev))
+        cuda_chol.chol_factor(_spd(rng, 2, 65, dev))
+    with pytest.raises(ValueError, match="n <= 64"):
+        cuda_chol.chol_solve(_spd(rng, 2, 65, dev),
+                             torch.ones(2, 65, 1, device=dev))
     with pytest.raises(TypeError, match="float32"):
         chol.spd_factor(_spd(rng, 2, 8, dev).double())
     with pytest.raises(ValueError, match="CUDA"):
@@ -309,3 +313,168 @@ def test_closed_loop_runs_through_the_kernels(dev):
     assert after[1] > before[1] and after[2] == before[2] + 1
     assert bool(torch.isfinite(res.final_com).all())
     assert bool((res.upright > 0.98).all())
+
+
+def test_spd_route_above_kernel_size_launches_nothing(rng, dev):
+    """n > 64 (the condensed planner's n = 12H) is routed by shape to
+    cholesky_ex and the triangular solves, before any launch."""
+    H = _spd(rng, 3, 240, dev)
+    r = torch.as_tensor(rng.normal(size=(3, 240, 2)), dtype=torch.float32,
+                        device=dev)
+    before = (cuda_chol.chol_factor.launches, cuda_chol.chol_sub.launches)
+    L, d = chol.spd_factor(H)
+    X = chol.spd_solve((L, d), r)
+    assert (cuda_chol.chol_factor.launches,
+            cuda_chol.chol_sub.launches) == before
+    Lp, dp = chol.plain_factor(H)
+    assert torch.equal(L, Lp) and torch.equal(d, dp)
+    assert torch.equal(X, chol.plain_solve(Lp, dp, r))
+
+
+# ---------------------------------------------------------------------------
+# chol_solve (csrc/spd_chol.cu spd_solve_kernel) and the scan's use_pallas
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B", [1, 64, 2048])
+@pytest.mark.parametrize("k", [1, 13])
+def test_chol_solve_kernel_matches_plain(rng, dev, B, k):
+    M = _spd(rng, B, 12, dev)
+    r = torch.as_tensor(rng.normal(size=(B, 12, k)), dtype=torch.float32,
+                        device=dev)
+    before = cuda_chol.chol_solve.launches
+    X = chol.chol_solve(M, r)
+    assert cuda_chol.chol_solve.launches == before + 1
+    assert _rel(X, chol.plain_chol_solve(M, r)) <= 1e-5
+
+
+def test_chol_solve_kernel_nan_lane(rng, dev):
+    M = _spd(rng, 5, 12, dev)
+    M[3, 4, 4] = -2.0
+    X = chol.chol_solve(M, torch.ones(5, 12, 13, device=dev))
+    Xp = chol.plain_chol_solve(M, torch.ones(5, 12, 13, device=dev))
+    assert bool(X[3].isnan().all() & Xp[3].isnan().all())
+    assert bool(X[[0, 1, 2, 4]].isfinite().all())
+
+
+def test_use_pallas_scan_on_the_card(rng, dev):
+    """The scan IPM with use_pallas launches chol_solve once per knot per
+    pass and agrees with the default path on the card."""
+    import dataclasses
+    qp = _qp(rng, dev, NX=13, NU=12, M=24, H=6)
+    cfg_p = dataclasses.replace(CFG, use_pallas=True)
+    before = cuda_chol.chol_solve.launches
+    out = tr.solve_stage_qp(qp, cfg_p)
+    assert cuda_chol.chol_solve.launches > before
+    _assert_close(out, tr.solve_stage_qp(qp, CFG), atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# the fused Riccati passes (csrc/fused_riccati.cu) and the fused IPM
+# ---------------------------------------------------------------------------
+
+def _pass_data(rng, dev, B, H=20, nx=13, nu=12, m=24, mask_frac=0.8):
+    d = problems.random_stage_qp(rng, B=B, H=H, NX=nx, NU=nu, M=m,
+                                 mask_frac=mask_frac, diag_q=False)
+    t = {k: torch.as_tensor(v, device=dev) for k, v in d.items()}
+    f32 = dict(dtype=torch.float32, device=dev)
+    mask = t["mask"]
+    t.update(u=torch.as_tensor(rng.normal(size=(B, H, nu)), **f32),
+             zm=mask * torch.as_tensor(rng.uniform(0.1, 2, (B, H, m)), **f32),
+             W=mask * torch.as_tensor(rng.uniform(0.1, 10, (B, H, m)), **f32),
+             rx=torch.as_tensor(rng.normal(size=(B, H, nu)), **f32),
+             vm=mask * torch.as_tensor(rng.normal(size=(B, H, m)), **f32),
+             Rreg=t["R"] + 1e-6 * torch.eye(nu, **f32))
+    return t
+
+
+@pytest.mark.parametrize("B", [4, 130, 2048])
+@pytest.mark.parametrize("mask_frac", [1.0, 0.6])
+def test_fused_passes_match_plain(rng, dev, B, mask_frac):
+    """Each pass against its plain version on the same inputs on the card:
+    rollout and vector at 1e-5 relative to the largest entry, the factor's
+    L, dinv and K too (float32 roundings of 13-term sums)."""
+    d = _pass_data(rng, dev, B, mask_frac=mask_frac)
+    from apf_quadruped_tpu_torch.ops import cuda_riccati as cr
+    args = (d["G"], d["R"], d["Q"], d["A"], d["B"], d["qlin"], d["u"],
+            d["zm"], d["x0"])
+    n0 = (cr.fused_rollout.launches, cr.fused_factor.launches,
+          cr.fused_vector.launches)
+    for a, b in zip(cr.fused_rollout(*args), cr.plain_rollout(*args)):
+        assert _rel(a, b) <= 1e-5
+    fargs = (d["G"], d["Rreg"], d["Q"], d["A"], d["B"], d["W"])
+    F = cr.fused_factor(*fargs)
+    for a, b in zip(F, cr.plain_factor_pass(*fargs)):
+        assert _rel(a, b) <= 1e-5
+    assert bool((torch.triu(F[0], 1) == 0).all())
+    vargs = (d["G"], d["A"], d["B"], *F, d["rx"], d["vm"])
+    for a, b in zip(cr.fused_vector(*vargs), cr.plain_vector_pass(*vargs)):
+        assert _rel(a, b) <= 1e-5
+    assert (cr.fused_rollout.launches, cr.fused_factor.launches,
+            cr.fused_vector.launches) == tuple(n + 1 for n in n0)
+
+
+@pytest.mark.parametrize("kw,atol", [({}, ATOL),
+                                     (dict(B=130, H=3, NX=4, NU=3, M=4), 1e-4),
+                                     (dict(mask_frac=0.0), ATOL)])
+def test_fused_ipm_matches_scan(rng, dev, kw, atol):
+    from apf_quadruped_tpu_torch.ops import cuda_riccati as cr
+    qp = _qp(rng, dev, **kw)
+    before = cr.fused_factor.launches
+    out = cr.solve_stage_qp_fused(qp, CFG)
+    assert cr.fused_factor.launches == before + CFG.iters
+    _assert_close(out, tr.solve_stage_qp(qp, CFG), atol=atol)
+
+
+def test_fused_ipm_nan_lane(rng, dev):
+    from apf_quadruped_tpu_torch.ops import cuda_riccati as cr
+    qp = _qp(rng, dev)
+    x0 = qp.x0.clone()
+    x0[1, 0] = float("nan")
+    out = cr.solve_stage_qp_fused(qp._replace(x0=x0), CFG)
+    assert bool(torch.isfinite(out.u).all())
+    assert not bool(out.converged[1]) and bool((out.u[1] == 0).all())
+    _assert_close(out, tr.solve_stage_qp(qp._replace(x0=x0), CFG))
+
+
+def test_fused_plan_and_reroute(dev):
+    """plan(backend="riccati_fused") on the card runs the three kernels and
+    agrees with the resident plan; with base_box it runs the resident
+    kernel instead."""
+    from apf_quadruped_tpu_torch.ops import cuda_riccati as cr
+    cfg = EngineConfig(mpc=MpcConfig(horizon=20, dt=0.025,
+                                     backend="riccati_fused"),
+                       solver=SolverConfig())
+    x0, refs = problems.bench_problem(cfg, 8, device=dev)
+    n0 = (cr.fused_rollout.launches, cr.fused_vector.launches)
+    out = planner.plan(cfg, x0, refs)
+    assert (cr.fused_rollout.launches - n0[0],
+            cr.fused_vector.launches - n0[1]) == (SolverConfig().iters + 1,
+                                                  2 * SolverConfig().iters)
+    res = planner.plan(EngineConfig(mpc=MpcConfig(horizon=20, dt=0.025),
+                                    solver=SolverConfig()), x0, refs)
+    assert torch.equal(out.sol.iters, res.sol.iters)
+    ftol = 1e-3 * max(1.0, float(res.forces.abs().max()))
+    assert float((out.forces - res.forces).abs().max()) <= ftol
+    boxed = EngineConfig(mpc=MpcConfig(horizon=20, dt=0.025, base_box=True,
+                                       backend="riccati_fused"))
+    r0, f0 = (cuda_riccati.solve_stage_qp_resident.launches,
+              cr.fused_factor.launches)
+    planner.plan(boxed, x0, refs)
+    assert cuda_riccati.solve_stage_qp_resident.launches == r0 + 1
+    assert cr.fused_factor.launches == f0
+
+
+def test_condensed_plan_on_the_card(dev):
+    """The condensed backend (n = 240, plain Cholesky by the shape rule)
+    against the resident plan, at the tighter tolerance its cross-check
+    needs: states within 5e-3, per-knot force sums within 5 N."""
+    sol = SolverConfig(iters=40, reltol=1e-6, abstol=1e-5)
+    cfg = EngineConfig(mpc=MpcConfig(horizon=20, dt=0.025,
+                                     backend="condensed"), solver=sol)
+    x0, refs = problems.bench_problem(cfg, 16, device=dev)
+    out = planner.plan(cfg, x0, refs)
+    res = planner.plan(EngineConfig(mpc=MpcConfig(horizon=20, dt=0.025),
+                                    solver=sol), x0, refs)
+    assert bool(out.sol.converged.all() & res.sol.converged.all())
+    assert float((out.states - res.states).abs().max()) <= 5e-3
+    assert float((out.forces.sum(-2) - res.forces.sum(-2)).abs().max()) <= 5.0

@@ -1,15 +1,22 @@
 """The port's boundaries: no JAX inside it, no hidden fallbacks.
 
   * importing every module of apf_quadruped_tpu_torch leaves both jax and
-    the JAX package out of sys.modules (checked in a fresh interpreter),
-    and the scripts that run on the GPU machine import neither;
+    the JAX package out of sys.modules, and loads no file from the JAX
+    package's directory (checked in a fresh interpreter); no code of the
+    port names that directory; the scripts that run on the GPU machine
+    import neither;
+  * the port's copies of the JAX package's pure-Python files (config,
+    DogBot constants) agree with them;
+  * the entry points run on the card unless asked for the CPU, and raise
+    without one;
   * without nvcc, building a CUDA kernel raises instead of returning;
-  * backends, solver options and sweep drivers that are not ported raise.
+  * solver options and sweep entry points that are not ported raise.
 """
 
 import ast
 import dataclasses
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -27,6 +34,7 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parent.parent
 SLICE = ["apf_quadruped_tpu_torch", "apf_quadruped_tpu_torch.config",
          "apf_quadruped_tpu_torch._precision", "apf_quadruped_tpu_torch._kernels",
+         "apf_quadruped_tpu_torch._device",
          "apf_quadruped_tpu_torch.models.dogbot",
          "apf_quadruped_tpu_torch.models.srb",
          "apf_quadruped_tpu_torch.ops.rotations",
@@ -47,16 +55,22 @@ SLICE = ["apf_quadruped_tpu_torch", "apf_quadruped_tpu_torch.config",
          "apf_quadruped_tpu_torch.runtime.observer",
          "apf_quadruped_tpu_torch.runtime.loop",
          "apf_quadruped_tpu_torch.runtime.sweep",
+         "apf_quadruped_tpu_torch.runtime.native",
          "apf_quadruped_tpu_torch.__main__"]
 
 
 def test_slice_imports_no_jax():
-    code = ("import importlib, sys\n"
+    jax_pkg = str(ROOT / "apf_quadruped_tpu") + os.sep
+    code = ("import importlib, os, sys\n"
             f"for m in {SLICE!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'apf_quadruped_tpu' "
             "or m.startswith('apf_quadruped_tpu.'))\n"
             "assert not bad, bad\n"
+            "files = sorted(m for m, mod in list(sys.modules.items()) "
+            "if os.path.realpath(getattr(mod, '__file__', None) or '')"
+            f".startswith({jax_pkg!r}))\n"
+            "assert not files, files\n"
             "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(ROOT)
@@ -86,15 +100,15 @@ def test_every_package_module_is_checked():
     found = {".".join(p.relative_to(ROOT).with_suffix("").parts)
              for p in pkg.rglob("*.py")}
     found = {m.removesuffix(".__init__") for m in found}
-    missing = found - set(SLICE) - {"apf_quadruped_tpu_torch._shared",
-                                    "apf_quadruped_tpu_torch.models",
+    missing = found - set(SLICE) - {"apf_quadruped_tpu_torch.models",
                                     "apf_quadruped_tpu_torch.ops",
                                     "apf_quadruped_tpu_torch.sim",
                                     "apf_quadruped_tpu_torch.runtime"}
     assert not missing, missing
 
 
-@pytest.mark.parametrize("loader", ["resident_ipm", "spd_chol"])
+@pytest.mark.parametrize("loader", ["resident_ipm", "spd_chol",
+                                    "fused_riccati"])
 def test_kernel_loader_raises_without_nvcc(monkeypatch, tmp_path, loader):
     if shutil.which("nvcc") or Path(os.environ.get(
             "CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc").is_file():
@@ -141,19 +155,11 @@ def test_spd_solve_on_cpu_takes_the_plain_version():
             cuda_chol.chol_sub.launches) == before
 
 
-@pytest.mark.parametrize("backend", ["riccati_fused", "condensed"])
-def test_unported_backends_raise(backend):
-    cfg = EngineConfig(mpc=MpcConfig(horizon=4, backend=backend))
-    x0, refs = problems.bench_problem(cfg, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        planner.plan(cfg, x0, refs)
-
-
-@pytest.mark.parametrize("option", ["use_pallas", "stage_bf16"])
+@pytest.mark.parametrize("option", ["stage_bf16"])
 def test_unported_solver_options_raise(option):
     cfg = EngineConfig(mpc=MpcConfig(horizon=4),
                        solver=SolverConfig(**{option: True}))
-    x0, refs = problems.bench_problem(cfg, 2)
+    x0, refs = problems.bench_problem(cfg, 2, device="cpu")
     with pytest.raises(NotImplementedError, match=option):
         planner.plan(cfg, x0, refs)
     with pytest.raises(NotImplementedError, match=option):
@@ -184,12 +190,126 @@ def test_precision_guard_restores_settings():
         torch.set_float32_matmul_precision(before[2])
 
 
+def _default(field):
+    """A field's default, a nested config as a dict (the two packages'
+    classes are distinct types)."""
+    v = (field.default_factory() if field.default_factory
+         is not dataclasses.MISSING else field.default)
+    return dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v
+
+
 def test_config_is_shared_not_copied():
-    """The port's config classes are the JAX package's dataclasses, loaded
-    from the same file."""
+    """The port keeps its own copy of the JAX package's config (no file is
+    shared), and the copy agrees with it: every dataclass has the same
+    field names and defaults, and the default trees are equal."""
     from apf_quadruped_tpu import config as jcfg
     from apf_quadruped_tpu_torch import config as tcfg
-    assert Path(sys.modules[tcfg.EngineConfig.__module__].__file__) == \
-        Path(jcfg.__file__)
+    assert Path(tcfg.__file__).parent == ROOT / "apf_quadruped_tpu_torch"
+    classes = [v for v in vars(jcfg).values()
+               if dataclasses.is_dataclass(v) and v.__module__ == jcfg.__name__]
+    assert len(classes) >= 10
+    for jc in classes:
+        tc = getattr(tcfg, jc.__name__)
+        assert tc.__module__ == tcfg.__name__
+        jf, tf = dataclasses.fields(jc), dataclasses.fields(tc)
+        assert [f.name for f in tf] == [f.name for f in jf], jc.__name__
+        for a, b in zip(jf, tf):
+            assert _default(a) == _default(b), (jc.__name__, a.name)
     assert dataclasses.asdict(tcfg.EngineConfig()) == \
         dataclasses.asdict(jcfg.EngineConfig())
+
+
+def test_dogbot_copy_matches_jax():
+    """The port's copy of the DogBot constants gives the JAX package's
+    numbers; default_joint_angles goes through the port's kinematics."""
+    import numpy as np
+
+    from apf_quadruped_tpu import config as jcfg
+    from apf_quadruped_tpu.models import dogbot as jdog
+    from apf_quadruped_tpu_torch.models import dogbot as tdog
+    robot = jcfg.RobotConfig()
+    for name in ("nominal_stance", "hip_positions", "inertia_matrix"):
+        np.testing.assert_array_equal(getattr(tdog, name)(robot),
+                                      getattr(jdog, name)(robot))
+    np.testing.assert_array_equal(tdog.repulsive_versors(),
+                                  jdog.repulsive_versors())
+    for a, b in zip(tdog.joint_limits(robot), jdog.joint_limits(robot)):
+        np.testing.assert_array_equal(a, b)
+    q = tdog.default_joint_angles(robot)
+    assert isinstance(q, torch.Tensor)
+    np.testing.assert_allclose(q.numpy(), np.asarray(
+        jdog.default_joint_angles(robot)), atol=1e-6)
+
+
+_JAX_DIR = re.compile(r"(?<![\w.])apf_quadruped_tpu(?![\w])")
+
+
+def _code_strings(path):
+    """The string constants of a module that are not docstrings."""
+    tree = ast.parse(path.read_text())
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(first.value,
+                                                          ast.Constant):
+                docs.add(id(first.value))
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+
+
+def test_no_port_code_names_the_jax_package_directory():
+    """No code of the port (string constants outside docstrings, imports)
+    names apf_quadruped_tpu/ as a path or module: the port reads and
+    writes nothing there."""
+    pkg = ROOT / "apf_quadruped_tpu_torch"
+    for path in sorted(pkg.rglob("*.py")):
+        bad = [s for s in _code_strings(path) if _JAX_DIR.search(s)]
+        assert not bad, (path, bad)
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.ImportFrom) and node.module:
+                assert node.module.split(".")[0] != "apf_quadruped_tpu", path
+            elif isinstance(node, ast.Import):
+                assert all(a.name.split(".")[0] != "apf_quadruped_tpu"
+                           for a in node.names), path
+
+
+def test_native_generator_builds_inside_the_port():
+    from apf_quadruped_tpu_torch.runtime import native
+    assert Path(native._SO_PATH).resolve().parent == \
+        ROOT / "apf_quadruped_tpu_torch" / "_build"
+    assert Path(native._SRC).resolve() == ROOT / "native" / "scenario_gen.cpp"
+
+
+def _entry_points():
+    from apf_quadruped_tpu_torch.runtime import loop, sweep
+    cfg = EngineConfig(mpc=MpcConfig(horizon=4))
+    return {"bench_problem": lambda **kw: problems.bench_problem(cfg, 2, **kw),
+            "random_scenarios": lambda **kw: sweep.random_scenarios(
+                cfg, 2, use_native=False, **kw),
+            "loop.init": lambda **kw: loop.init(cfg, 2, **kw)}
+
+
+@pytest.mark.parametrize("entry", ["bench_problem", "random_scenarios",
+                                   "loop.init"])
+def test_entry_points_default_to_the_card(entry):
+    """Without a device the entry points ask for the card: without one
+    they raise and name the CPU option; with device='cpu' they run."""
+    call = _entry_points()[entry]
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; chip_smoke.py drives the "
+                    "entry points there")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+    leaves = [v for v in call(device="cpu") if isinstance(v, torch.Tensor)]
+    assert leaves and all(v.device.type == "cpu" for v in leaves)
+
+
+def test_sweep_command_needs_the_card_or_device_cpu():
+    from apf_quadruped_tpu_torch.__main__ import main
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the command would run there")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        main(["sweep", "--batch", "2", "--cycles", "1"])

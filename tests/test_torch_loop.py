@@ -62,7 +62,7 @@ def _pairs(prefix, tree, golden):
 def test_scenarios_match_jax_generator(golden):
     cfg = sweep.cli_config()
     scn = sweep.random_scenarios(cfg, 4, seed=0, dtype=torch.float64,
-                                 use_native=False)
+                                 use_native=False, device="cpu")
     for key, port, ref in _pairs("scn", scn, golden):
         np.testing.assert_array_equal(port, ref, err_msg=key)
 
@@ -102,7 +102,7 @@ def test_gait_schedules():
     """Every gait mode's flag, crawl state and cycle length per lane."""
     def sched(mode, cycle_idx, crawling, rob):
         cfg = EngineConfig(gait=GaitConfig(mode=mode))
-        st = loop.init(cfg, 3, dtype=torch.float64)
+        st = loop.init(cfg, 3, dtype=torch.float64, device="cpu")
         st = st._replace(cycle_idx=torch.tensor(cycle_idx, dtype=torch.int32),
                          crawling=torch.tensor(crawling))
         ast = st.apf._replace(rob_foot=torch.tensor(rob, dtype=torch.float64)
@@ -128,7 +128,7 @@ def test_crawl_cycle_runs():
     converged, the warm start stored for the same flag, unpermuted."""
     cfg = EngineConfig(gait=GaitConfig(mode="crawl", crawl_cycle=0.2),
                        mpc=MpcConfig(horizon=8, dt=0.025))
-    st = loop.init(cfg, 1, dtype=torch.float64)
+    st = loop.init(cfg, 1, dtype=torch.float64, device="cpu")
     terr = terrain.flat(cfg.sim, batch=(1,), dtype=torch.float64)
     st2, m = loop.run(cfg, st, terr, torch.tensor([[0.0, 1.0]],
                                                   dtype=torch.float64),
@@ -144,6 +144,6 @@ def test_sweep_command_runs(capsys):
     """`python -m apf_quadruped_tpu_torch sweep` on one scenario, one cycle
     (the CPU here: the plain versions of the kernels)."""
     from apf_quadruped_tpu_torch.__main__ import main
-    main(["sweep", "--batch", "1", "--cycles", "1"])
+    main(["sweep", "--batch", "1", "--cycles", "1", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "scenarios=1 cycles=1 device=cpu" in out and "fell=0" in out

@@ -273,7 +273,7 @@ def test_convert_carries_jax_state():
     jst = jax.vmap(lambda _: jloop.init(JCFG, dtype=jnp.float64))(
         jnp.arange(B))
     carried = convert.loop_state(jst)
-    own = tloop.init(CFG, B, dtype=torch.float64)
+    own = tloop.init(CFG, B, dtype=torch.float64, device="cpu")
     for a, b in zip(convert.to_numpy(carried.sim), convert.to_numpy(own.sim)):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-12)
     for f in ("apf", "obs"):
@@ -289,6 +289,6 @@ def test_convert_carries_jax_state():
     scn_j = jsweep.random_scenarios(JCFG, 2, seed=3, dtype=jnp.float64,
                                     use_native=False)
     scn_t = tsweep.random_scenarios(CFG, 2, seed=3, dtype=torch.float64,
-                                    use_native=False)
+                                    use_native=False, device="cpu")
     for a, b in zip(convert.scenario(scn_j), scn_t):
         assert torch.equal(a, b)

@@ -72,7 +72,7 @@ def _assert_plans_match(jout, tout):
 def test_plan_matches_jax(rng, case):
     cfg = _cfg(**{"base_box_acc": dict(base_box=True, base_acc=True),
                   "sqp2": dict(sqp_iters=2)}.get(case, {}))
-    x0, refs = problems.bench_problem(cfg, B)
+    x0, refs = problems.bench_problem(cfg, B, device="cpu")
     if case == "cone_rot":
         refs = refs._replace(cone_rot=torch.as_tensor(_cone_rot(rng)))
     jx0, jrefs = jnp.asarray(x0.numpy()), _jax_refs(refs)
@@ -100,7 +100,7 @@ def test_plan_standing_forces_carry_the_weight():
     """All four feet in stance and no CoM motion: the feet carry the
     robot's weight."""
     cfg = _cfg()
-    x0, refs = problems.bench_problem(cfg, B)
+    x0, refs = problems.bench_problem(cfg, B, device="cpu")
     com = x0[:, 3:6]
     refs = refs._replace(contacts=torch.ones_like(refs.contacts),
                          x_ref=planner.reference_trajectory(
@@ -119,7 +119,7 @@ def test_plan_standing_forces_carry_the_weight():
 def test_stage_qp_matches_what_plan_solves(rng):
     """planner.stage_qp is the problem plan() hands the solver."""
     cfg = _cfg(base_box=True, base_acc=True)
-    x0, refs = problems.bench_problem(cfg, B)
+    x0, refs = problems.bench_problem(cfg, B, device="cpu")
     qp = planner.stage_qp(cfg, x0, refs)
     assert qp.A.shape == (B, H, 13, 13) and qp.mask.shape == (B, H, 24)
     assert qp.Cx.shape == (6, 13) and qp.acc_rhs.shape == (6,)
@@ -132,7 +132,7 @@ def test_stage_qp_matches_what_plan_solves(rng):
 def test_auto_backend_on_cpu_is_the_plain_path():
     cfg = dataclasses.replace(_cfg(), mpc=dataclasses.replace(
         _cfg().mpc, backend="auto"))
-    x0, refs = problems.bench_problem(cfg, 2)
+    x0, refs = problems.bench_problem(cfg, 2, device="cpu")
     assert planner.effective_backend(cfg, x0.device) == "riccati"
     assert planner.effective_backend(cfg, torch.device("cuda")) == \
         "riccati_resident"
