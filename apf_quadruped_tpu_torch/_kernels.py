@@ -66,11 +66,9 @@ class IpmArgs(ctypes.Structure):
     """Mirror of `struct IpmArgs` in csrc/resident_ipm.cu (same order)."""
 
     _fields_ = ([(f, ctypes.c_void_p) for f in (
-        "A", "Bm", "q", "mask", "h", "x0", "G", "R", "Q",
-        "wu", "wz", "ws", "wvalid", "Cx", "cx", "maskx", "acc",
-        "u", "x", "z", "s", "zx", "sx", "stat", "scratch")]
-        + [(f, ctypes.c_int) for f in (
-            "B", "H", "nx", "nu", "m", "mc", "iters")]
+        "knots", "x0", "G", "R", "Q", "wu", "wz", "ws", "wvalid", "Cx", "acc",
+        "st", "stat", "scratch")]
+        + [(f, ctypes.c_int) for f in ("B", "H", "m", "mc", "iters")]
         + [(f, ctypes.c_float) for f in (
             "reltol", "abstol", "sigma_pow", "frac", "w_clip", "min_slack",
             "warm_floor", "reg")])
@@ -84,10 +82,9 @@ def resident_ipm() -> ctypes.CDLL:
     lib.resident_ipm_launch.argtypes = [ctypes.POINTER(IpmArgs),
                                         ctypes.c_void_p]
     lib.resident_ipm_launch.restype = ctypes.c_int
-    lib.resident_ipm_scratch_rows.argtypes = [ctypes.c_int] * 5
-    lib.resident_ipm_scratch_rows.restype = ctypes.c_int
-    lib.resident_ipm_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
-    lib.resident_ipm_limits.restype = None
+    lib.resident_ipm_layout.argtypes = [ctypes.POINTER(ctypes.c_int),
+                                        ctypes.c_int]
+    lib.resident_ipm_layout.restype = ctypes.c_int
     return lib
 
 
@@ -136,8 +133,19 @@ def fused_riccati_limits() -> tuple[int, int, int, int]:
     return tuple(v.value for v in vals)
 
 
-def resident_ipm_limits() -> tuple[int, int, int, int]:
-    """(NX_MAX, NU_MAX, M_MAX, MC_MAX) compiled into the kernel."""
-    vals = [ctypes.c_int() for _ in range(4)]
-    resident_ipm().resident_ipm_limits(*[ctypes.byref(v) for v in vals])
-    return tuple(v.value for v in vals)
+# the names of resident_ipm_layout's values, in its order
+_IPM_LAYOUT = ("NX", "NU", "M_MAX", "MC_MAX", "IN_REC", "IN_A", "IN_BT",
+               "IN_Q", "IN_MASK", "IN_H", "IN_CX", "IN_MX", "ST_REC", "ST_U",
+               "ST_X", "ST_Z", "ST_S", "ST_ZX", "ST_SX", "SC_REC")
+
+
+@functools.cache
+def resident_ipm_layout() -> dict[str, int]:
+    """The resident kernel's compiled widths and limits (NX, NU, M_MAX,
+    MC_MAX) and its per-knot record layout (offsets in floats)."""
+    vals = (ctypes.c_int * len(_IPM_LAYOUT))()
+    n = resident_ipm().resident_ipm_layout(vals, len(_IPM_LAYOUT))
+    if n != len(_IPM_LAYOUT):
+        raise RuntimeError(f"resident_ipm_layout gave {n} values, expected "
+                           f"{len(_IPM_LAYOUT)}")
+    return dict(zip(_IPM_LAYOUT, vals))

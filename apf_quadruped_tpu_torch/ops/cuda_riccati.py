@@ -5,9 +5,12 @@ Ports of apf_quadruped_tpu/ops/pallas_riccati.py's two kernel backends.
 `solve_stage_qp_resident` (backend "riccati_resident", csrc/resident_ipm.cu):
 the whole Mehrotra loop of ops.riccati.solve_stage_qp in one CUDA kernel
 launch, one warp per scenario.  The wrapper flattens the batch dims of the
-StageQP into one contiguous float32 batch axis in front, as the kernel
-reads it, allocates its outputs and scratch, launches it on the current
-stream, and turns the outputs back into a StageSolution with the scan's
+StageQP into one float32 batch axis in front and packs each knot's data
+into the kernel's 16-byte aligned knot record (A, B', q, mask, h, cx,
+mask_x; states padded to 13 and inputs to 12 with zeros, the padded
+inputs' block of R the identity, which changes no sum), allocates the
+iterate and scratch records, launches the kernel on the current stream,
+and turns the iterate's fields back into a StageSolution with the scan's
 NaN quarantine.  Unlike the TPU kernel, the accel rows' z/s sit in the
 scan's layout (accel rows last) inside the kernel too, so warm z/s pass
 through as they are.  CPU tensors go to the plain version,
@@ -63,6 +66,7 @@ solve_stage_qp_resident.launches = 0
 def _launch(qp: StageQP, cfg: SolverConfig,
             warm: WarmStart | None) -> StageSolution:
     lib = _kernels.resident_ipm()
+    lay = _kernels.resident_ipm_layout()
     dev = qp.x0.device
     f32 = torch.float32
     if qp.x0.dtype != f32:
@@ -76,11 +80,12 @@ def _launch(qp: StageQP, cfg: SolverConfig,
     mc = qp.Cx.shape[0] if has_x else 0
     macc = qp.acc_rhs is not None
     mt = m + (12 if macc else 0)
-    nx_max, nu_max, m_max, mc_max = _kernels.resident_ipm_limits()
-    if nx > nx_max or nu > nu_max or m > m_max or mc > mc_max:
+    NX, NU = lay["NX"], lay["NU"]
+    if nx > NX or nu > NU or m > lay["M_MAX"] or mc > lay["MC_MAX"]:
         raise ValueError(
-            f"resident IPM kernel supports nx<={nx_max}, nu<={nu_max}, "
-            f"m<={m_max}, mc<={mc_max}; got nx={nx}, nu={nu}, m={m}, mc={mc}")
+            f"resident IPM kernel supports nx<={NX}, nu<={NU}, "
+            f"m<={lay['M_MAX']}, mc<={lay['MC_MAX']}; got nx={nx}, nu={nu}, "
+            f"m={m}, mc={mc}")
     if macc and nx != 13:
         raise ValueError("accel rows (acc_rhs) assume the 13-state SRB "
                          f"layout; got nx={nx}")
@@ -88,44 +93,60 @@ def _launch(qp: StageQP, cfg: SolverConfig,
         raise ValueError("empty batch")
 
     def flat(v, rows):
-        """(batch..) + rows -> (nb,) + rows, contiguous float32."""
+        """(batch..) + rows -> (nb,) + rows, float32 on the device."""
         v = torch.broadcast_to(v.to(device=dev, dtype=f32), batch + rows)
-        return v.reshape((nb,) + rows).contiguous()
+        return v.reshape((nb,) + rows)
 
-    def const(v):
-        return v.to(device=dev, dtype=f32).contiguous()
+    def padded(v, shape):
+        """v in the leading corner of zeros of `shape`: the kernel's widths
+        are 13 states and 12 inputs, and zero rows and columns change no
+        sum."""
+        out = torch.zeros(shape, dtype=f32, device=dev)
+        out[tuple(slice(0, n) for n in v.shape)] = v
+        return out
 
+    # the knot records: A, B', q, mask, h, cx, mask_x (masked rows' h and
+    # cx are 1, as in the scan)
+    knots = torch.zeros((nb, H, lay["IN_REC"]), dtype=f32, device=dev)
+
+    def field(name, n):
+        return knots[..., lay[name]:lay[name] + n]
+
+    field("IN_A", NX * NX).unflatten(-1, (NX, NX))[..., :nx, :nx] = \
+        flat(qp.A, (H, nx, nx))
+    field("IN_BT", NU * NX).unflatten(-1, (NU, NX))[..., :nu, :nx] = \
+        flat(qp.B, (H, nx, nu)).transpose(-1, -2)
+    field("IN_Q", nx)[...] = flat(qp.qlin, (H, nx))
     mask = flat(qp.mask, (H, m))
-    h = torch.where(mask > 0, flat(qp.h, (H, m)), torch.ones_like(mask))
-    keep = {                                     # inputs, alive until launch
-        "A": flat(qp.A, (H, nx, nx)), "Bm": flat(qp.B, (H, nx, nu)),
-        "q": flat(qp.qlin, (H, nx)), "mask": mask, "h": h,
-        "x0": flat(qp.x0, (nx,)), "G": const(qp.G), "R": const(qp.R),
-        "Q": const(qp.Q)}
-    if warm is not None:
-        keep.update(wu=flat(warm.u, (H, nu)), wz=flat(warm.z, (H, mt)),
-                    ws=flat(warm.s, (H, mt)),
-                    wvalid=flat(warm.valid, ()))
+    field("IN_MASK", m)[...] = mask
+    field("IN_H", m)[...] = torch.where(mask > 0, flat(qp.h, (H, m)),
+                                        torch.ones_like(mask))
+    R = padded(qp.R.to(dev, f32), (NU, NU))
+    R.diagonal()[nu:] = 1.0                   # the padded inputs' block
+    keep = {"knots": knots, "x0": padded(flat(qp.x0, (nx,)), (nb, NX)),
+            "G": padded(qp.G.to(dev, f32), (m, NU)), "R": R,
+            "Q": padded(qp.Q.to(dev, f32), (NX, NX))}
     if has_x:
         maskx = flat(qp.mask_x, (H, mc))
-        keep.update(Cx=const(qp.Cx), maskx=maskx,
-                    cx=torch.where(maskx > 0, flat(qp.cx, (H, mc)),
-                                   torch.ones_like(maskx)))
+        field("IN_MX", mc)[...] = maskx
+        field("IN_CX", mc)[...] = torch.where(
+            maskx > 0, flat(qp.cx, (H, mc)), torch.ones_like(maskx))
+        keep["Cx"] = padded(qp.Cx.to(dev, f32), (mc, NX))
+    if warm is not None:
+        keep.update(wu=padded(flat(warm.u, (H, nu)), (nb, H, NU)),
+                    wz=flat(warm.z, (H, mt)).contiguous(),
+                    ws=flat(warm.s, (H, mt)).contiguous(),
+                    wvalid=flat(warm.valid, ()).contiguous())
     if macc:
-        keep["acc"] = const(qp.acc_rhs)
+        keep["acc"] = qp.acc_rhs.to(dev, f32).contiguous()
 
-    def empty(*shape):
-        return torch.empty(shape, dtype=f32, device=dev)
-
-    out = {"u": empty(nb, H, nu), "x": empty(nb, H, nx),
-           "z": empty(nb, H, mt), "s": empty(nb, H, mt),
-           "zx": empty(nb, H, mc), "sx": empty(nb, H, mc),
-           "stat": empty(nb, 4),
-           "scratch": empty(nb,
-                            lib.resident_ipm_scratch_rows(H, nx, nu, mt, mc))}
+    out = {"st": torch.empty((nb, H, lay["ST_REC"]), dtype=f32, device=dev),
+           "stat": torch.empty((nb, 4), dtype=f32, device=dev),
+           "scratch": torch.empty((nb, H, lay["SC_REC"]), dtype=f32,
+                                  device=dev)}
     args = _kernels.IpmArgs(
         **{k: v.data_ptr() for k, v in {**keep, **out}.items()},
-        B=nb, H=H, nx=nx, nu=nu, m=m, mc=mc, iters=cfg.iters,
+        B=nb, H=H, m=m, mc=mc, iters=cfg.iters,
         reltol=cfg.reltol, abstol=cfg.abstol, sigma_pow=cfg.sigma_pow,
         frac=cfg.frac_to_boundary, w_clip=cfg.w_clip,
         min_slack=cfg.min_slack, warm_floor=cfg.warm_floor,
@@ -139,17 +160,19 @@ def _launch(qp: StageQP, cfg: SolverConfig,
                            f"{err}")
     solve_stage_qp_resident.launches += 1
 
-    def unflat(v):
-        """(nb,) + rows -> batch + rows."""
-        return v.reshape(batch + v.shape[1:])
+    st = out["st"]
 
-    stat = unflat(out["stat"])
-    return finalize(unflat(out["u"]), unflat(out["x"]), unflat(out["z"]),
-                    unflat(out["s"]), stat[..., 0] > 0.5,
+    def view(name, n):
+        """The (nb, H, n) field `name` of the iterate -> batch + (H, n)."""
+        return st[..., lay[name]:lay[name] + n].reshape(batch + (H, n))
+
+    stat = out["stat"].reshape(batch + (4,))
+    return finalize(view("ST_U", nu), view("ST_X", nx), view("ST_Z", mt),
+                    view("ST_S", mt), stat[..., 0] > 0.5,
                     stat[..., 1].to(torch.int32), stat[..., 2],
                     stat[..., 3],
-                    unflat(out["zx"]) if has_x else None,
-                    unflat(out["sx"]) if has_x else None)
+                    view("ST_ZX", mc) if has_x else None,
+                    view("ST_SX", mc) if has_x else None)
 
 
 # ---------------------------------------------------------------------------

@@ -21,11 +21,15 @@ from .models.dogbot import nominal_stance
 
 def random_stage_qp(rng: np.random.Generator, B=4, H=5, NX=6, NU=4, M=6,
                     mask_frac=0.8, diag_q=True, mc=0, acc=False,
-                    dtype=np.float32) -> dict:
+                    dtype=np.float32, a_noise=0.1) -> dict:
     """Dict of numpy arrays keyed by StageQP field.  mc > 0 adds mc state
     rows (+-e_d selectors of the first mc/2 states, as base_box builds
-    them); acc=True adds accel-row bounds (needs NX=13, the SRB layout)."""
-    A = np.tile(np.eye(NX), (B, H, 1, 1)) + rng.normal(size=(B, H, NX, NX)) * 0.1
+    them); acc=True adds accel-row bounds (needs NX=13, the SRB layout).
+    A_k = I + a_noise N(0, 1): over a long horizon (H = 30) the default
+    0.1 spreads the dynamics so far that float32 rounding alone moves a
+    lane's stopping iteration; 0.03 keeps such a problem well posed."""
+    A = (np.tile(np.eye(NX), (B, H, 1, 1))
+         + rng.normal(size=(B, H, NX, NX)) * a_noise)
     Bm = rng.normal(size=(B, H, NX, NU)) * 0.3
     if diag_q:
         Q = np.diag(rng.uniform(0.5, 2.0, NX))

@@ -16,7 +16,11 @@ Phases; each raises on failure, so any failure exits non-zero:
      SolverConfig()) through backend "auto", a warm replan, a
      base_box + base_acc plan; the kernel's launch count must rise;
   6. timing: plan solves/s with the kernel and with the plain version, and
-     the kernel's own time against the plain solve, at B=2048, H=20;
+     the kernel's own time against the plain solve, at B=2048, H=20; the
+     iterations the cold plan's lanes ran (min, median, max) and the
+     kernel's time with every lane running all SolverConfig().iters
+     iterations (reltol = abstol = 0), and that time an iteration, which
+     the end of the run prints beside the fused passes' (phase 14);
   7. build: the SPD factor/substitution kernels (csrc/spd_chol.cu), built
      with nvcc together with the resident IPM in phase 2 (timed);
   8. the SPD kernels vs their plain versions (ops.chol) on the card at
@@ -997,13 +1001,13 @@ def main():
             rates.append(B * reps / (time.perf_counter() - t))
         return float(np.median(rates)), out
 
-    def solve_ms(fn, qp, reps):
-        fn(qp, cfg.solver)
+    def solve_ms(fn, qp, reps, solver=cfg.solver):
+        fn(qp, solver)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(reps):
-            fn(qp, cfg.solver)
+            fn(qp, solver)
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
@@ -1019,6 +1023,18 @@ def main():
           f"bursts)", flush=True)
     print(f"[time] {card}: stage-QP solve B={B} H={H}: kernel {ms_k:.3f} ms, "
           f"plain {ms_p:.3f} ms (CUDA events)", flush=True)
+    # the kernel ends with its slowest warp: the iterations its lanes ran,
+    # and its time when every lane runs all of them
+    its_k = out_k.sol.iters.float()
+    print(f"[time] {card}: iterations of the cold plan's lanes: min "
+          f"{int(its_k.min())}, median {float(its_k.median()):.0f}, max "
+          f"{int(its_k.max())} (mean {float(its_k.mean()):.3f})", flush=True)
+    n_it = cfg.solver.iters
+    ms_all = solve_ms(cuda_riccati.solve_stage_qp_resident, qp, 10,
+                      SolverConfig(reltol=0.0, abstol=0.0))
+    print(f"[time] {card}: stage-QP solve B={B} H={H}, reltol = abstol = 0 "
+          f"(every lane runs {n_it} iterations): kernel {ms_all:.3f} ms, "
+          f"{ms_all / n_it:.4f} ms an iteration (CUDA events)", flush=True)
 
     # the bound of this solve: this run's bytes, and the operations of
     # the iterations its lanes ran (a lane leaves the loop once converged:
@@ -1042,6 +1058,14 @@ def main():
     chol = closed_loop(dev, card, build_s["spd_chol"])
     fused = fused_slice(dev, card, build_s, golden, compare_solve, x0, refs,
                         x1, refs1, ref, rate_k)
+    # the fused plan's kernels run every iteration: the device time of one
+    # plan's launches of the three passes (phase 14), an iteration
+    fused_ms = sum(r["ms"] * r["launches"] for r in fused
+                   if r["name"].startswith("fused_"))
+    print(f"[time] {card}: an IPM iteration at B={B} H={H}: resident kernel "
+          f"{ms_all / n_it:.4f} ms (phase 6, every lane running {n_it}), "
+          f"fused passes {fused_ms / n_it:.4f} ms ({fused_ms:.3f} ms of "
+          f"device time a fused plan)", flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "resident_ipm", "route": "cuda",

@@ -85,10 +85,83 @@ def test_kernel_matches_plain(rng, dev, has_warm, mc, acc):
 
 
 def test_kernel_over_block_edge(rng, dev):
-    """B=130 is not a multiple of the block's 4 scenarios."""
+    """B=130 is not a multiple of the block's 8 scenarios."""
     qp = _qp(rng, dev, B=130, H=3, NX=4, NU=3, M=4)
     _assert_close(cuda_riccati.solve_stage_qp_resident(qp, CFG),
                   tr.solve_stage_qp(qp, CFG), atol=1e-4)
+
+
+# The kernel stages each knot's records into a two-slot ring while it
+# works on the knot before: the cases below are those a ring can break.
+
+@pytest.mark.parametrize("H", [1, 2, 7, 30])
+def test_kernel_ring_over_horizons(rng, dev, H):
+    """Production widths (13 states, 12 inputs, 24 rows) with 6 state rows
+    and the accel rows: one knot (no copy in flight behind it), two (each
+    slot once), an odd horizon (the sweeps end on the other slot than they
+    start) and a long one."""
+    qp = _qp(rng, dev, mc=6, acc=True, H=H, a_noise=0.03)
+    _assert_close(cuda_riccati.solve_stage_qp_resident(qp, CFG),
+                  tr.solve_stage_qp(qp, CFG))
+
+
+@pytest.mark.parametrize("B", [1, 9, 2049])
+def test_kernel_batch_off_the_block(rng, dev, B):
+    """A batch of one scenario, and batches one past a multiple of the
+    block's 8 scenarios, whose spare warps leave before any work.  The
+    2049 lanes repeat 9 problems: every copy of a problem comes back
+    equal bit for bit, whichever block and warp ran it."""
+    q = problems.random_stage_qp(rng, B=min(B, 9), H=5, NX=13, NU=12, M=24,
+                                 mc=6, acc=True)
+    lanes = np.arange(B) % 9 if B > 9 else np.arange(B)
+    q = {k: v[lanes] if k in ("A", "B", "qlin", "mask", "x0", "cx", "mask_x")
+         else v for k, v in q.items()}
+    qp = convert.stage_qp(q, dev)
+    out = cuda_riccati.solve_stage_qp_resident(qp, CFG)
+    _assert_close(out, tr.solve_stage_qp(qp, CFG))
+    first = torch.as_tensor(lanes, device=dev)
+    for f in ("u", "x", "z", "s", "zx", "sx", "iters"):
+        assert torch.equal(getattr(out, f), getattr(out, f)[first]), f
+
+
+def test_kernel_block_lanes_stop_apart(rng, dev):
+    """Warm and cold lanes mixed in each block of 8: warm lanes converge
+    iterations before their neighbours and leave the loop, the others run
+    on."""
+    qp = _qp(rng, dev, B=16, mc=6, acc=True, H=7)
+    cold = tr.solve_stage_qp(qp, CFG)
+    valid = torch.arange(16, device=dev) % 3 == 0
+    warm = tr.WarmStart(u=cold.u, z=cold.z, s=cold.s, valid=valid)
+    ref = tr.solve_stage_qp(qp, CFG, warm)
+    out = cuda_riccati.solve_stage_qp_resident(qp, CFG, warm)
+    assert len(set(ref.iters[:8].tolist())) > 1
+    _assert_close(out, ref)
+
+
+def test_kernel_every_iteration_without_tolerance(rng, dev):
+    """reltol = abstol = 0: no lane converges, every lane runs all the
+    iterations and ends on the last measure, as the plain version does."""
+    cfg = SolverConfig(iters=6, reltol=0.0, abstol=0.0, static_reg=1e-6,
+                       w_clip=1e6)
+    qp = _qp(rng, dev, mc=6, acc=True, H=7)
+    out = cuda_riccati.solve_stage_qp_resident(qp, cfg)
+    assert bool((out.iters == 6).all()) and not bool(out.converged.any())
+    _assert_close(out, tr.solve_stage_qp(qp, cfg))
+
+
+@pytest.mark.parametrize("H", [10, 30])
+def test_kernel_plan_horizons(dev, H):
+    """The BASELINE horizons beside H=20 on the planner's own stage QP with
+    the base_box state rows and the base_acc accel rows: the iterations of
+    the plain version on every lane, u (forces of O(100) N) within the
+    plan gate, 1e-3 of the largest force."""
+    cfg = EngineConfig(mpc=MpcConfig(horizon=H, dt=0.025, base_box=True,
+                                     base_acc=True), solver=SolverConfig())
+    x0, refs = problems.bench_problem(cfg, 16, device=dev)
+    qp = planner.stage_qp(cfg, x0, refs)
+    ref = tr.solve_stage_qp(qp, cfg.solver)
+    _assert_close(cuda_riccati.solve_stage_qp_resident(qp, cfg.solver), ref,
+                  atol=1e-3 * max(1.0, float(ref.u.abs().max())))
 
 
 def test_kernel_nan_lane_quarantined(rng, dev):

@@ -80,7 +80,8 @@ def test_slice_imports_no_jax():
     assert proc.stdout.strip() == "ok"
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "tests/test_torch_cuda.py"])
+@pytest.mark.parametrize("script", ["chip_smoke.py", "ipm_phases.py",
+                                    "tests/test_torch_cuda.py"])
 def test_gpu_scripts_import_no_jax(script):
     """What runs on the GPU machine, which has no JAX, imports none of it
     and nothing of the JAX package."""
