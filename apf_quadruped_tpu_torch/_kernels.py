@@ -89,10 +89,12 @@ def resident_ipm() -> ctypes.CDLL:
 
 
 @functools.cache
-def spd_chol() -> ctypes.CDLL:
-    """The batched SPD factor / substitution library (csrc/spd_chol.cu),
-    built and loaded once per process."""
-    lib = ctypes.CDLL(str(build("spd_chol", [CSRC / "spd_chol.cu"])))
+def spd_chol(src: Path = CSRC / "spd_chol.cu",
+             name: str = "spd_chol") -> ctypes.CDLL:
+    """The batched SPD factor / substitution library (csrc/spd_chol.cu, or
+    another version of it at `src`, built as `name`), built and loaded
+    once per process."""
+    lib = ctypes.CDLL(str(build(name, [src])))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.spd_factor_launch.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
     lib.spd_factor_launch.restype = i32

@@ -1,71 +1,304 @@
-// Batched SPD Cholesky factor, substitution, and factor-and-solve: three
-// CUDA kernels.
+// Batched SPD Cholesky factor, substitution, and factor-and-solve: CUDA
+// kernels for Hopper.
 //
-// Replaces the TPU kernels apf_quadruped_tpu/ops/pallas_chol.py::_factor_kernel
-// (reached through chol_factor_blocked) and ::_sub_kernel (through
-// chol_sub_blocked), which the JAX package routes its batched spd_factor /
-// spd_solve through, and ::_chol_solve_kernel (through chol_solve_blocked),
-// which its scan Riccati IPM calls for every 12 x 12 solve under
-// SolverConfig.use_pallas.  On the closed loop's path the first two factor
-// the WBC QP's H = P + G' W G and its Schur complement S_eq (n = 30) twice
-// per IPM iteration and the physics substep's 18 x 18 mass matrix, and
-// substitute one right-hand side (k = 1, the Newton vectors and the
-// mass-matrix solve) or thirty (k = 30, H^-1 A').  The third factors
-// M_k = R_k + B' P B (n = 12) and solves k = 13 right-hand sides (the gains
-// K_k) or one (the feed-forward kff_k) in the same launch, per knot.
+// What each body replaces (the JAX package's TPU kernels in
+// apf_quadruped_tpu/ops/pallas_chol.py):
+//   spd_factor_kernel<N>, spd_factor_wide_kernel <- ::_factor_kernel (via
+//       chol_factor_blocked): H (B, n, n) SPD -> L (B, n, n) lower-
+//       triangular with exact zeros above the diagonal, dinv (B, n) =
+//       1 / diag(L).  s = H_jj - sum_t L_jt^2, d = rsqrt(s), L_jj = s d,
+//       L_ij = (H_ij - sum_t L_it L_jt) d, every sum in ascending t.  A
+//       pivot that is not positive (or NaN) makes the whole matrix and dinv
+//       NaN, as the plain version (cholesky_ex + NaN fill) returns it: the
+//       QP's lane quarantine depends on the NaN.  Never a clamp.  Only the
+//       lower triangle of H is read.
+//   spd_sub_rows_kernel<N> (k < COLS_MIN_K), spd_sub_cols_kernel<N>
+//   (k >= COLS_MIN_K), spd_sub_wide_kernel <- ::_sub_kernel (via
+//       chol_sub_blocked): L, dinv, rhs (B, n, k) -> X (B, n, k) with
+//       L L' X = rhs: forward, then back substitution, both scaled by dinv.
+//   spd_solve_kernel <- ::_chol_solve_kernel (via chol_solve_blocked):
+//       M (B, n, n) SPD, rhs (B, n, k) -> X with M X = rhs, the factor and
+//       the substitution in one launch; all of X NaN where M is not
+//       positive definite.
+// On the closed loop's path the first two factor the WBC QP's H = P + G' W G
+// and its Schur complement S_eq (n = 30) twice per IPM iteration and the
+// physics substep's mass matrix (n = 18), and substitute one right-hand
+// side (k = 1: the Newton vectors, the mass-matrix solve) or thirty
+// (k = 30: H^-1 A'): 36 factors and 206 substitutions a tick.  The third
+// serves the scan IPM under SolverConfig.use_pallas (n = 12, k = 13 or 1).
 //
-//   factor: H (B, n, n) SPD -> L (B, n, n) lower-triangular with exact zeros
-//           above the diagonal, dinv (B, n) = 1 / diag(L).  Column by column,
-//           as the TPU kernel: s = H_jj - sum_t L_jt^2, d = rsqrt(s),
-//           L_jj = s d, L_ij = (H_ij - sum_t L_it L_jt) d.  A pivot that is
-//           not positive (or NaN) makes the whole matrix and dinv NaN, as
-//           the plain version (cholesky_ex + NaN fill) returns it: the QP's
-//           lane quarantine depends on the NaN.  Never a clamp.
-//   sub:    L, dinv, rhs (B, n, k) -> X (B, n, k) with L L' X = rhs: forward
-//           substitution, then back substitution, both scaled by dinv.
-//   solve:  M (B, n, n) SPD, rhs (B, n, k) -> X (B, n, k) with M X = rhs: the
-//           factor, then the substitution, on the factor in shared memory;
-//           all of X NaN where M is not positive definite (the TPU kernel's
-//           rsqrt of a non-positive pivot, as the plain version returns it).
+// What bounds them on the H100: the dependent chain, not bytes.  A batch
+// of 64 30 x 30 factors moves 0.36 MB and does 0.58 Mflop, 0.11 us at the
+// card's memory rate; what no design avoids is 30 columns in turn, each a
+// pivot that the next column waits on, and 2n dependent steps a k = 1
+// substitution.  The yardstick is the launch floor, the device time of a
+// kernel that does next to nothing (0.5-1 us on an H100 SXM at 700 W,
+// chip_smoke.py phase 10), not the bytes.  The first design (one warp a
+// matrix in shared memory, left-looking, runtime n) ran ~n^2 dependent
+// shared-load -> FMA steps a factor and 2n shuffle steps with shared loads
+// inside a k = 1 substitution: 0.0210 and 0.0093 ms at B = 64, n = 30;
+// this one takes 0.0041 and 0.0026 (spd_turns.py; PERF.md, section 6).
 //
-// Design.  The TPU put 128 scenarios on the vector lanes and unrolled the
-// n^3 recurrence at trace time; here one warp owns one matrix, held in
-// shared memory, so a batch of 64 still gives 64 warps of 32 threads.  The
-// three kernels share one factor body and two substitution bodies.
-//   * factor: lanes over rows.  Per column every lane forms the pivot from
-//     broadcast reads; the lane of each row below it forms that row's dot
-//     product (left-looking, the TPU kernel's summation order); one
-//     __syncwarp per column.
-//   * sub, k >= COLS_MIN_K: lanes over the right-hand sides, each lane runs
-//     both substitutions of its column with L read by broadcast.
-//   * sub, k < COLS_MIN_K: lanes over rows (row r in register r / 32 of lane
-//     r % 32), right-looking: the finished y_i / x_i is broadcast with one
-//     shuffle and every lane updates its rows; columns in turn.
-// The row stride in shared memory is odd, so lanes reading one column of L
-// hit distinct banks.
-//
-// What bounds it on the H100: latency.  A 30 x 30 factor is ~4.5k FMAs,
-// run as 30 dependent columns of <= 30 FMAs a lane; a k = 1 substitution is
-// 60 dependent shuffle-and-FMA steps.  At the loop's batch (64) the card is
-// nearly empty and a launch costs more than the work; what would help is
-// fewer launches (the whole WBC QP in one resident kernel, or a CUDA graph
-// of a tick), not a faster factor.  The same holds for solve: under
-// use_pallas the scan IPM launches it once per knot per pass (60 launches
-// an iteration at H = 20) on ~1k FMAs of work each.
+// Design (N = 18, the mass matrix, and N = 30, H and S_eq, compile-time;
+// n <= 18 runs at N = 18 and 19 <= n <= 30 at N = 30, the matrix padded
+// with an identity block as it is staged: exact, since the first n columns
+// of L depend only on the leading n x n block; 31 <= n <= 64 takes the wide
+// bodies with runtime n).  One warp a matrix, one matrix a block.
+//   * staging: a matrix is one contiguous block of N*N floats (3,600 bytes
+//     at n = 30, 1,296 at n = 18, both multiples of 16), copied into shared
+//     memory with 16-byte cp.async while the warp loads its other operands,
+//     then into registers; results go back through shared memory as 16-byte
+//     stores.  A padded or unaligned matrix is staged row by row (lane c
+//     copies column c, a coalesced load a row).  The row path alone runs
+//     every case, but at B = 64 it took the factor 0.00465 ms against
+//     0.00409 (n = 30) and 0.00254 against 0.00216 (n = 18), the k = 30
+//     substitution 0.00495 against 0.00457 (H100 SXM at 700 W,
+//     spd_turns.py in turns; PERF.md section 6); at B = 1024 the two are
+//     within 3%.
+//   * factor, right-looking, lane r = row r, the row in registers (its
+//     lower triangle; zeros above).  Column j: the pivot comes from lane j
+//     by one shuffle, then rsqrt; every lane scales its own a[j]; the
+//     column's L_cj are broadcast by shuffles, independent of each other,
+//     and every lane updates its remaining entries with them.  The next
+//     pivot, fma(-L_(j+1)j, L_(j+1)j, a[j+1]) on lane j+1, is shuffled out
+//     before the rest of the update, so a column's chain is shuffle, rsqrt,
+//     multiply, FMA: no shared memory and no __syncwarp in it.  Each entry
+//     still subtracts its terms in ascending t, so the rounding is the
+//     first design's.
+//   * sub, k < COLS_MIN_K: lane r holds row r of L and column r of L (for
+//     the back substitution) in registers, read once from shared memory,
+//     and dinv_r in a register.  Each step of both substitutions is one
+//     multiply on the owning lane, one shuffle and one FMA on the rest,
+//     fully unrolled, nothing read from memory inside the chain.
+//   * sub, k >= COLS_MIN_K: lane c holds its right-hand side in registers;
+//     L and dinv come from shared memory by broadcast reads (every lane
+//     reads the same word), unrolled so that a step's loads run ahead of
+//     its FMAs; right-looking, so each step's updates are independent.
+//     The reads are volatile: without that the compiler reuses the forward
+//     pass's loads in the back substitution, keeps ~N^2 / 2 values live
+//     and spills.
+// spd_solve_kernel and the wide bodies keep the first design's device
+// functions (factor_in_place, sub_cols, sub_rows: one warp a matrix in
+// shared memory with an odd row stride, runtime n).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 // -fPIC, without --use_fast_math.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int N_MAX = 64;        // two rows a lane in the row-parallel paths
+constexpr int N_MAX = 64;        // two rows a lane in the wide row paths
+constexpr int N_SMALL = 18;      // compile-time widths: the mass matrix,
+constexpr int N_LARGE = 30;      // and the WBC's H and S_eq
 constexpr int COLS_MIN_K = 8;    // sub: lanes over columns from this k on
-constexpr int MAX_WARPS = 4;     // matrices per block
+constexpr int MAX_WARPS = 4;     // wide bodies: matrices per block
 constexpr int SMEM_BUDGET = 48 * 1024;
 constexpr unsigned FULL = 0xffffffffu;
+
+// ---- staging ---------------------------------------------------------------
+
+// 16 bytes from device memory into shared memory, asynchronously (L2 only)
+__device__ __forceinline__ void cp16(float* dst, const float* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+#endif
+}
+
+__device__ __forceinline__ void cp_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+// wait for this thread's copies; a __syncwarp after it publishes them
+__device__ __forceinline__ void cp_wait_all() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+#endif
+}
+
+// Start copying the row-major n x n matrix g into sm (row stride N, the
+// identity beyond n).  vec: n == N and g 16-byte aligned, so the matrix is
+// N*N/4 contiguous 16-byte chunks, copied with cp.async (cp_wait_all and a
+// __syncwarp complete it); otherwise the lanes copy it row by row.
+template <int N>
+__device__ __forceinline__ void stage(float* sm, const float* __restrict__ g,
+                                      int n, bool vec, int lane) {
+  static_assert(N <= 32 && (N * N) % 4 == 0,
+                "one row a lane; the matrix whole 16-byte chunks");
+  if (vec) {
+    for (int q = lane; q < N * N / 4; q += 32) cp16(sm + 4 * q, g + 4 * q);
+    cp_commit();
+  } else if (lane < N) {
+    for (int i = 0; i < N; ++i)
+      sm[i * N + lane] = (i < n && lane < n) ? g[i * n + lane]
+                                             : (i == lane ? 1.0f : 0.0f);
+  }
+}
+
+// Write the leading n x n block of sm (row stride N) to the row-major g, as
+// `stage` read it (vec: 16-byte stores).
+template <int N>
+__device__ __forceinline__ void unstage(float* __restrict__ g, const float* sm,
+                                        int n, bool vec, int lane) {
+  if (vec) {
+    const float4* s4 = reinterpret_cast<const float4*>(sm);
+    float4* g4 = reinterpret_cast<float4*>(g);
+    for (int q = lane; q < N * N / 4; q += 32) g4[q] = s4[q];
+  } else if (lane < n) {
+    for (int i = 0; i < n; ++i) g[i * n + lane] = sm[i * N + lane];
+  }
+}
+
+// ---- compile-time widths: rows in registers ---------------------------------
+
+template <int N>
+__global__ void __launch_bounds__(32)
+    spd_factor_kernel(const float* __restrict__ H, float* __restrict__ L,
+                      float* __restrict__ dinv, int n, bool vec) {
+  __shared__ __align__(16) float sm[N * N];
+  const int lane = threadIdx.x;
+  const size_t b = blockIdx.x;
+  stage<N>(sm, H + b * n * n, n, vec, lane);
+  cp_wait_all();
+  __syncwarp();
+
+  // lane r < N holds row r's lower triangle, zeros above; lanes >= N zeros
+  const int r = lane < N ? lane : N - 1;   // an address inside sm
+  float a[N];
+#pragma unroll
+  for (int c = 0; c < N; ++c)
+    a[c] = (c <= lane && lane < N) ? sm[r * N + c] : 0.0f;
+
+  float s = __shfl_sync(FULL, a[0], 0);    // column 0's pivot
+  float dv = 0.0f;                         // 1 / L_rr on lane r
+  bool bad = false;                        // uniform: s is broadcast
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const float d = rsqrtf(s);
+    bad |= !(s > 0.0f);
+    if (lane == j) dv = d;
+    const float l = a[j] * d;              // lane > j: L_rj; lane j: s d
+    a[j] = l;
+    const float lu = lane > j ? l : 0.0f;  // the rows below j update
+    if (j + 1 < N)   // next pivot, ahead of the rest (lane j + 1's lu is l)
+      s = __shfl_sync(FULL, fmaf(-l, l, a[j + 1]), j + 1);
+#pragma unroll
+    for (int c = j + 1; c < N; ++c)
+      a[c] = fmaf(-lu, __shfl_sync(FULL, lu, c), a[c]);
+  }
+
+  const float nan = __int_as_float(0x7fc00000);
+  __syncwarp();                            // every lane has read sm
+  if (lane < N) {
+#pragma unroll
+    for (int c = 0; c < N; ++c)
+      sm[lane * N + c] = bad ? nan : (c <= lane ? a[c] : 0.0f);
+  }
+  __syncwarp();
+  unstage<N>(L + b * n * n, sm, n, vec, lane);
+  if (lane < n) dinv[b * n + lane] = bad ? nan : dv;
+}
+
+// X = (L L')^-1 rhs for k < COLS_MIN_K: lanes over rows.  Lane r holds
+// row r of L (strictly lower) and column r (strictly below the diagonal);
+// lanes >= N hold zeros.
+template <int N>
+__global__ void __launch_bounds__(32)
+    spd_sub_rows_kernel(const float* __restrict__ L,
+                        const float* __restrict__ dinv,
+                        const float* __restrict__ rhs, float* __restrict__ X,
+                        int n, int k, bool vec) {
+  __shared__ __align__(16) float sm[N * N];
+  const int lane = threadIdx.x;
+  const size_t b = blockIdx.x;
+  stage<N>(sm, L + b * n * n, n, vec, lane);
+  const float dvr = lane < n ? dinv[b * n + lane] : 1.0f;   // 1 beyond n
+  const float* rb = rhs + b * n * k;
+  float* xb = X + b * n * k;
+  float v = lane < n ? rb[lane * k] : 0.0f;   // column 0, during the copy
+  cp_wait_all();
+  __syncwarp();
+  const int r = lane < N ? lane : N - 1;      // an address inside sm
+  float lrow[N], lcol[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    lrow[i] = (i < lane && lane < N) ? sm[r * N + i] : 0.0f;
+    lcol[i] = i > lane ? sm[i * N + r] : 0.0f;
+  }
+  for (int c = 0;;) {
+    // L y = b: y_i = v_i dinv_i on lane i, broadcast, the rows below
+    // subtract L_ri y_i; lane r's v stops changing after step r
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      v = fmaf(-lrow[i], __shfl_sync(FULL, v * dvr, i), v);
+    // L' x = y, from the last row up
+    float w = v * dvr;
+#pragma unroll
+    for (int i = N - 1; i >= 0; --i)
+      w = fmaf(-lcol[i], __shfl_sync(FULL, w * dvr, i), w);
+    if (lane < n) xb[lane * k + c] = w * dvr;
+    if (++c == k) break;
+    v = lane < n ? rb[lane * k + c] : 0.0f;
+  }
+}
+
+// The same for k >= COLS_MIN_K: lanes over the right-hand sides, 32 at a
+// time, right-looking, L and dinv read by broadcast.
+template <int N>
+__global__ void __launch_bounds__(32)
+    spd_sub_cols_kernel(const float* __restrict__ L,
+                        const float* __restrict__ dinv,
+                        const float* __restrict__ rhs, float* __restrict__ X,
+                        int n, int k, bool vec) {
+  __shared__ __align__(16) float sm[N * N + N];
+  const int lane = threadIdx.x;
+  const size_t b = blockIdx.x;
+  stage<N>(sm, L + b * n * n, n, vec, lane);
+  if (lane < N) sm[N * N + lane] = lane < n ? dinv[b * n + lane] : 1.0f;
+  // volatile: each step's loads are issued in program order, ahead of its
+  // FMAs; the compiler neither reuses the forward pass's loads in the back
+  // substitution nor hoists them all (either keeps ~N^2 / 2 values live
+  // and spills)
+  const volatile float* l = sm;
+  const volatile float* dv = sm + N * N;
+  const float* rb = rhs + b * n * k;
+  float* xb = X + b * n * k;
+  for (int c0 = 0; c0 < k; c0 += 32) {
+    const int c = c0 + lane;
+    const bool on = c < k;
+    float x[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = (on && i < n) ? rb[i * k + c] : 0.0f;
+    cp_wait_all();                         // L staged (once, in group 0)
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < N; ++i) {          // L y = b
+      x[i] *= dv[i];
+#pragma unroll
+      for (int t = i + 1; t < N; ++t) x[t] = fmaf(-l[t * N + i], x[i], x[t]);
+    }
+#pragma unroll
+    for (int i = N - 1; i >= 0; --i) {     // L' x = y
+      x[i] *= dv[i];
+#pragma unroll
+      for (int t = 0; t < i; ++t) x[t] = fmaf(-l[i * N + t], x[i], x[t]);
+    }
+    if (on) {
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        if (i < n) xb[i * k + c] = x[i];
+    }
+  }
+}
+
+// ---- runtime n (the wide bodies and the factor-and-solve) -------------------
 
 __host__ __device__ int row_stride(int n) { return n | 1; }
 
@@ -96,8 +329,9 @@ __device__ void load_matrix(float* dst, const float* __restrict__ src, int n,
 }
 
 // Factor the n x n matrix in `a` (row stride ld) in place: its strict lower
-// triangle becomes L's, ldiag[j] = L_jj, dv[j] = 1 / L_jj.  Returns whether
-// a pivot was not positive (uniform across the warp).
+// triangle becomes L's, ldiag[j] = L_jj, dv[j] = 1 / L_jj.  Left-looking,
+// lanes over rows, one __syncwarp a column.  Returns whether a pivot was
+// not positive (uniform across the warp).
 __device__ bool factor_in_place(float* a, float* ldiag, float* dv, int n,
                                 int ld, int lane) {
   bool bad = false;
@@ -179,10 +413,10 @@ __device__ void sub_rows(const float* l, const float* dv, int n, int ld,
   }
 }
 
-__global__ void spd_factor_kernel(const float* __restrict__ H,
-                                  float* __restrict__ L,
-                                  float* __restrict__ dinv, int B, int n,
-                                  int warps) {
+__global__ void spd_factor_wide_kernel(const float* __restrict__ H,
+                                       float* __restrict__ L,
+                                       float* __restrict__ dinv, int B, int n,
+                                       int warps) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b = blockIdx.x * warps + warp;
@@ -205,11 +439,11 @@ __global__ void spd_factor_kernel(const float* __restrict__ H,
   for (int i = lane; i < n; i += 32) dinv[(size_t)b * n + i] = bad ? nan : dv[i];
 }
 
-__global__ void spd_sub_kernel(const float* __restrict__ L,
-                               const float* __restrict__ dinv,
-                               const float* __restrict__ rhs,
-                               float* __restrict__ X, int B, int n, int k,
-                               int warps) {
+__global__ void spd_sub_wide_kernel(const float* __restrict__ L,
+                                    const float* __restrict__ dinv,
+                                    const float* __restrict__ rhs,
+                                    float* __restrict__ X, int B, int n, int k,
+                                    int warps) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b = blockIdx.x * warps + warp;
@@ -254,6 +488,27 @@ __global__ void spd_solve_kernel(const float* __restrict__ M,
   else sub_rows(a, dv, n, ld, rb, xb, k, lane);
 }
 
+bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
+
+// one matrix a block at a compile-time width N >= n; the 16-byte staging
+// where the matrix is N x N and its buffers are 16-byte aligned
+template <int N>
+void factor_launch(const float* H, float* L, float* dinv, int B, int n,
+                   cudaStream_t st) {
+  const bool vec = n == N && aligned16(H) && aligned16(L);
+  spd_factor_kernel<N><<<B, 32, 0, st>>>(H, L, dinv, n, vec);
+}
+
+template <int N>
+void sub_launch(const float* L, const float* dinv, const float* rhs, float* X,
+                int B, int n, int k, cudaStream_t st) {
+  const bool vec = n == N && aligned16(L);
+  if (k < COLS_MIN_K)
+    spd_sub_rows_kernel<N><<<B, 32, 0, st>>>(L, dinv, rhs, X, n, k, vec);
+  else
+    spd_sub_cols_kernel<N><<<B, 32, 0, st>>>(L, dinv, rhs, X, n, k, vec);
+}
+
 }  // namespace
 
 extern "C" {
@@ -265,22 +520,36 @@ int spd_chol_max_n() { return N_MAX; }
 int spd_factor_launch(const float* H, float* L, float* dinv, int B, int n,
                       void* stream) {
   if (B < 1 || n < 1 || n > N_MAX) return (int)cudaErrorInvalidValue;
-  const size_t per = factor_smem(n);
-  const int warps = warps_for(per);
-  const int grid = (B + warps - 1) / warps;
-  spd_factor_kernel<<<grid, 32 * warps, warps * per,
-                      (cudaStream_t)stream>>>(H, L, dinv, B, n, warps);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n <= N_SMALL) {
+    factor_launch<N_SMALL>(H, L, dinv, B, n, st);
+  } else if (n <= N_LARGE) {
+    factor_launch<N_LARGE>(H, L, dinv, B, n, st);
+  } else {
+    const size_t per = factor_smem(n);
+    const int warps = warps_for(per);
+    const int grid = (B + warps - 1) / warps;
+    spd_factor_wide_kernel<<<grid, 32 * warps, warps * per, st>>>(
+        H, L, dinv, B, n, warps);
+  }
   return (int)cudaGetLastError();
 }
 
 int spd_sub_launch(const float* L, const float* dinv, const float* rhs,
                    float* X, int B, int n, int k, void* stream) {
   if (B < 1 || n < 1 || n > N_MAX || k < 1) return (int)cudaErrorInvalidValue;
-  const size_t per = sub_smem(n);
-  const int warps = warps_for(per);
-  const int grid = (B + warps - 1) / warps;
-  spd_sub_kernel<<<grid, 32 * warps, warps * per, (cudaStream_t)stream>>>(
-      L, dinv, rhs, X, B, n, k, warps);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n <= N_SMALL) {
+    sub_launch<N_SMALL>(L, dinv, rhs, X, B, n, k, st);
+  } else if (n <= N_LARGE) {
+    sub_launch<N_LARGE>(L, dinv, rhs, X, B, n, k, st);
+  } else {
+    const size_t per = sub_smem(n);
+    const int warps = warps_for(per);
+    const int grid = (B + warps - 1) / warps;
+    spd_sub_wide_kernel<<<grid, 32 * warps, warps * per, st>>>(
+        L, dinv, rhs, X, B, n, k, warps);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -34,8 +34,14 @@ Phases; each raises on failure, so any failure exits non-zero:
      float32 run (tests/data/loop_golden.npz);
  10. timing: closed-loop scenario-ticks/s, a torch.profiler breakdown of
      the tick (launches, share of device time in the SPD kernels, device
-     idle share), the SPD kernels against their plain versions and their
-     library calls (cholesky_ex, cholesky_solve);
+     idle share), the launch floor, the SPD kernels against their library
+     calls (cholesky_ex, cholesky_solve) in turns, the median of six
+     profiler windows each (`window`: each kernel's mean over the launches
+     recorded times its launches a call, windows that lost more than 5%
+     of their launches profiled again; the window total beside it), with
+     the library's kernels and the card's SM clock and power beside them
+     (factor and substitution k = 1 and 30 at n=30, B in {64, 1024}; n=18,
+     B=64), and against their plain versions;
  11. build: the fused Riccati passes (csrc/fused_riccati.cu) and the
      rebuilt spd_chol (with chol_solve), built with nvcc together with the
      others in phase 2 (timed, ptxas lines);
@@ -63,11 +69,15 @@ Uses no JAX: the card's machine has none.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import NamedTuple
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 # H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W)
@@ -108,11 +118,10 @@ def knot_flops(nx, nu, m):
     return rollout, factor, vector
 
 
-def call_ms(fn, reps=50):
-    """(CUDA-event ms, profiler device ms) of one call of fn, means over
-    `reps` back-to-back calls after one warm-up call."""
+def event_ms(fn, reps=50):
+    """CUDA-event ms of one call of fn, mean over `reps` back-to-back calls
+    after one warm-up call."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
@@ -123,29 +132,192 @@ def call_ms(fn, reps=50):
         fn()
     end.record()
     torch.cuda.synchronize()
-    event_ms = start.elapsed_time(end) / reps
-    # now and then a profiling window comes back without device events
-    # (a whole call at 0 ms): profile again, and after three empty windows
-    # let the CUDA-event time stand in, saying so
-    for _ in range(3):
+    return start.elapsed_time(end) / reps
+
+
+class Launches:
+    """What the profiler windows of one callable have shown: each device
+    kernel's launches a call, the most any window recorded (its count over
+    the calls made, rounded up), and the number of windows."""
+
+    def __init__(self):
+        self.per_call, self.windows = {}, 0
+
+
+class Window(NamedTuple):
+    ms: float          # device ms a call: each kernel's mean over the
+    #                    launches recorded times its launches a call
+    total_ms: float    # the window's recorded device total over the calls
+    #                    made (short where the window lost launches)
+    launches: dict     # {device kernel: launches a call}
+    share: float       # launches recorded / launches made
+
+
+def window(fn, reps=50, seen=None, min_share=0.95, tries=6):
+    """The device time of one call of fn under torch.profiler: a Window of
+    `reps` back-to-back calls after one warm-up call.
+
+    A profiler window may record fewer launches than were made (2 of 50
+    lost at times, most of them now and then).  `seen` (a Launches, carried from one
+    call to the next for the same fn) gives each kernel's launches a call
+    once two windows have been profiled; a window that recorded less than
+    `min_share` of those launches, or none of one kernel's, is profiled
+    again, up to `tries` windows in all, never scaled up.  If none
+    qualifies, the best is returned and a line says so; if no window
+    recorded anything, the CUDA-event time stands in, saying so."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    seen = Launches() if seen is None else seen
+    fn()
+    torch.cuda.synchronize()
+    got = []
+    for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        dev_us = sum(e.self_device_time_total for e in prof.key_averages()
-                     if e.device_type == torch.autograd.DeviceType.CUDA)
-        if dev_us > 0:
-            return event_ms, dev_us / 1e3 / reps
-    print("[time] the profiler recorded no device time in three windows: "
-          "the CUDA-event time stands in for the device time", flush=True)
-    return event_ms, event_ms
+        rec = {e.key: (e.count, e.self_device_time_total)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.count > 0}
+        got.append(rec)
+        seen.windows += 1
+        for key, (count, _) in rec.items():
+            seen.per_call[key] = max(seen.per_call.get(key, 0),
+                                     -(-count // reps))
+        if seen.windows < 2 or not seen.per_call:
+            continue
+        made = reps * sum(seen.per_call.values())
+
+        def judged(rec):
+            whole = all(key in rec for key in seen.per_call)
+            return whole, sum(c for c, _ in rec.values()) / made, rec
+        whole, share, best = max(map(judged, got), key=lambda w: w[:2])
+        if whole and share >= min_share:
+            break
+    if not seen.per_call:
+        print("[time] the profiler recorded no device time in "
+              f"{len(got)} windows: the CUDA-event time stands in for the "
+              "device time", flush=True)
+        ms = event_ms(fn, reps)
+        return Window(ms, ms, {}, 0.0)
+    if not (whole and share >= min_share):
+        print(f"[time] no window of {len(got)} recorded {min_share:.0%} of "
+              f"its launches: the best recorded {share:.2%}", flush=True)
+    ms = sum(us / count * seen.per_call[key]
+             for key, (count, us) in best.items()) / 1e3
+    total = sum(us for _, us in best.values()) / 1e3 / reps
+    return Window(ms, total, dict(seen.per_call), share)
+
+
+def call_ms(fn, reps=50):
+    """(CUDA-event ms of one call of fn, mean over `reps` back-to-back
+    calls; the Window of its device time)."""
+    return event_ms(fn, reps), window(fn, reps)
+
+
+def smi(query):
+    """nvidia-smi's reading of `query` for the first card, e.g. 'name,
+    power.limit'."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def turns(fns, rounds=3, reps=50):
+    """Profiler windows of two callables in turns (a, b, b, a; `rounds`
+    times): {label: [Window, ...], "clocks": [the card's SM clock, power
+    draw and power limit after each window]}."""
+    (a, _), (b, _) = fns.items()
+    seen = {a: Launches(), b: Launches()}
+    out = {a: [], b: [], "clocks": []}
+    for _ in range(rounds):
+        for label in (a, b, b, a):
+            out[label].append(window(fns[label], reps, seen[label]))
+            out["clocks"].append(smi("clocks.sm,power.draw,power.limit"))
+    return out
+
+
+def median(xs):
+    return float(np.median(xs))
+
+
+def span(col):
+    """'least-most' of a column of nvidia-smi readings ('1980 MHz')."""
+    nums = [float(v.split()[0]) for v in col
+            if v.split()[0].replace(".", "", 1).isdigit()]
+    return f"{min(nums):g}-{max(nums):g}" if nums else "not reported"
+
+
+def turns_line(label, ws):
+    """'label 0.00410 ms [...] (window total 0.00400 ms, 96.00%-100.00% of
+    launches recorded)' for the Windows of one side of `turns`."""
+    return (f"{label} {median([w.ms for w in ws]):.5f} ms "
+            f"{[round(w.ms, 5) for w in ws]} (window total "
+            f"{median([w.total_ms for w in ws]):.5f} ms, "
+            f"{min(w.share for w in ws):.2%}-{max(w.share for w in ws):.2%} "
+            f"of launches recorded)")
+
+
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+
+
+def tick_profile(cfg, scn, n_ticks):
+    """One replan cycle of `n_ticks` ticks (sweep.step_batch at `cfg`'s
+    configuration, on `scn`) under torch.profiler, after an unprofiled
+    one.  A dict: `calls`, the kernel launch calls the profiler saw on the
+    host by API (the port's ctypes libraries' among them); `recorded`, the
+    kernels it recorded on the device (copies and sets left out); `dev_us`
+    and `spd_us`, the recorded device time of every kernel and of the SPD
+    factor and substitution; `wall_s`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from apf_quadruped_tpu_torch.runtime import sweep
+
+    c = cfg.replace(gait=cfg.gait.__class__(
+        mode="trot", trot_cycle=n_ticks * cfg.sim.dt))
+    st0 = sweep.init_batch(c, scn)
+    sweep.step_batch(c, scn, st0, 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        sweep.step_batch(c, scn, st0, 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    ka = prof.key_averages()
+    on_dev = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"calls": {e.key: e.count for e in ka if e.key in LAUNCH_CALLS},
+            "recorded": sum(e.count for e in on_dev if not e.key.startswith(
+                ("Memcpy", "Memset"))),
+            "dev_us": sum(e.self_device_time_total for e in on_dev),
+            "spd_us": sum(e.self_device_time_total for e in on_dev
+                          if "spd_factor" in e.key or "spd_sub" in e.key),
+            "wall_s": wall}
 
 
 def print_ptxas(kernels, name):
+    """One line a kernel of library `name`: its registers, stack and spills
+    as ptxas reported them (names demangled by the toolkit's cu++filt)."""
+    filt = Path(kernels.find_nvcc()).parent / "cu++filt"
     for log in sorted(kernels.BUILD_ROOT.glob(f"{name}-*/build.log")):
+        fn, spills = "?", ""
         for line in log.read_text().splitlines():
-            if "registers" in line or "stack frame" in line:
-                print(f"[build] {name} ptxas: {line.strip()}")
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1]
+                if filt.is_file():
+                    full = subprocess.run([str(filt), fn], capture_output=True,
+                                          text=True).stdout
+                    m = re.search(r"(\w+(?:<[^<>]*>)?)\(", full)
+                    fn = m.group(1) if m else fn
+            elif "stack frame" in line:
+                spills = line.strip()
+            elif "registers" in line:
+                print(f"[build] {name} ptxas: {fn}: "
+                      f"{line.split(':', 1)[1].strip()}; {spills}")
 
 def closed_loop(dev, card, build_spd_s):
     """Phases 7-10; returns the SPD kernels' JSON records."""
@@ -363,97 +535,101 @@ def closed_loop(dev, card, build_spd_s):
           f"scenario-ticks/s, {1e3 * wall / (ticks / Bs):.2f} ms per tick "
           f"(run_batch, {cycles} cycles, host clock)", flush=True)
     # the tick under torch.profiler: two short cycles (10 and 20 ticks, the
-    # same tick as the main path's), launches per tick from the difference
-    from torch.profiler import ProfilerActivity, profile
-
-    def profiled(n_ticks):
-        c = cfg.replace(gait=cfg.gait.__class__(
-            mode="trot", trot_cycle=n_ticks * cfg.sim.dt))
-        st0 = sweep.init_batch(c, scn)
-        sweep.step_batch(c, scn, st0, 1)                       # warm-up
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            sweep.step_batch(c, scn, st0, 1)
-            torch.cuda.synchronize()
-            window = time.perf_counter() - t
-        ka = prof.key_averages()
-        launch = sum(e.count for e in ka if e.key == "cudaLaunchKernel")
-        on_dev = [e for e in ka
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        dev_us = sum(e.self_device_time_total for e in on_dev)
-        spd_us = sum(e.self_device_time_total for e in on_dev
-                     if "spd_factor" in e.key or "spd_sub" in e.key)
-        return launch, dev_us, spd_us, window
-
-    l10, _, _, _ = profiled(10)
-    l20, d20, s20, w20 = profiled(20)
-    per_tick = (l20 - l10) / 10
+    # same tick as the main path's), launches per tick from the difference;
+    # the kernels recorded on the device against the launch calls say how
+    # far the recorded device time is short
+    p10, p20 = tick_profile(cfg, scn, 10), tick_profile(cfg, scn, 20)
+    made = sum(p20["calls"].values())
+    per_tick = (made - sum(p10["calls"].values())) / 10
+    d20, w20 = p20["dev_us"], p20["wall_s"]
     if d20 > 0:
-        shares = (f"SPD kernels {100 * s20 / d20:.2f}% of device time; "
-                  f"device busy {d20 / 1e3:.3f} of {1e3 * w20:.3f} ms, idle "
-                  f"{100 * (1 - d20 / 1e6 / w20):.2f}%")
+        shares = (f"SPD kernels {100 * p20['spd_us'] / d20:.2f}% of device "
+                  f"time; device busy {d20 / 1e3:.3f} of {1e3 * w20:.3f} ms,"
+                  f" idle {100 * (1 - d20 / 1e6 / w20):.2f}%")
     else:
         shares = "device time not measured (the profiler saw none)"
     print(f"[time] {card}: profiled tick B={Bs}: {per_tick:.0f} kernel "
-          f"launches a tick ({l20} in a 20-tick cycle, {l10} in a 10-tick "
-          f"one); {shares} (20-tick cycle under the profiler); device busy "
-          f"{d20 / 20e3:.3f} ms a tick against {1e3 * wall / (ticks / Bs):.2f}"
-          f" ms a tick unprofiled", flush=True)
+          f"launches a tick ({made} in a 20-tick cycle, by API "
+          f"{p20['calls']}; {sum(p10['calls'].values())} in a 10-tick one);"
+          f" {shares} (20-tick cycle under the profiler); device busy "
+          f"{d20 / 20e3:.3f} ms a tick against "
+          f"{1e3 * wall / (ticks / Bs):.2f} ms a tick unprofiled; the window "
+          f"recorded {p20['recorded']} kernels on the device of the {made} "
+          f"launched ({100 * p20['recorded'] / made:.3f}%)", flush=True)
 
-    # the kernels against their plain versions and their library calls
-    # (cholesky_ex; cholesky_solve on the factor): CUDA events over 50
-    # back-to-back calls (at these sizes the device waits for the host's
-    # issue, so this is the call's cost to a caller), and the device time
-    # of the call's kernels under the profiler (the kernels' own cost)
+    # the kernels against their library calls (cholesky_ex; cholesky_solve
+    # on the factor), in turns (kernel, library, library, kernel, three
+    # rounds): six profiler windows of 50 back-to-back calls each, the
+    # device time a call of each window (each kernel's mean times its
+    # launches a call; the window total over the calls beside it), its
+    # median, the kernels the library call launched, and the card's SM
+    # clock and power sampled after each window.  The plain versions
+    # (call_ms) and the CUDA-event time of a call (host-bound at these
+    # sizes: the call's cost to a caller) beside them.  The launch floor:
+    # one elementwise kernel on 64 floats, timed the same way.  The bounds
+    # count the bytes the functions need: the factor reads H's lower
+    # triangle and writes L whole and dinv; the substitution reads L's
+    # strict lower triangle, dinv and rhs and writes X
+    z = torch.zeros(64, device=dev)
+    floor, seen = [], Launches()
+    for _ in range(5):
+        floor.append(window(z.zero_, seen=seen).ms)
+    print(f"[time] {card}: launch floor (one elementwise kernel on 64 "
+          f"floats): {median(floor):.5f} ms device time a call (median of 5 "
+          f"windows {[round(x, 5) for x in floor]})", flush=True)
+    src = "apf_quadruped_tpu_torch/csrc/spd_chol.cu"
     times = {}
-    n = 30
-    for B in (64, 1024):
+    for n, B in ((30, 64), (30, 1024), (18, 64)):
         H = torch.as_tensor(spd(B, n), dtype=f32, device=dev)
         F = cuda_chol.chol_factor(H)
         Fp = chol.plain_factor(H)
-        times[("factor", B, 0)] = (
-            call_ms(lambda: cuda_chol.chol_factor(H)),
-            call_ms(lambda: chol.plain_factor(H)),
-            call_ms(lambda: torch.linalg.cholesky_ex(H)))
-        for k in (1, 30):
+        cases = [(("factor", B, n, 0), lambda: cuda_chol.chol_factor(H),
+                  lambda: chol.plain_factor(H),
+                  lambda: torch.linalg.cholesky_ex(H),
+                  bound(4 * B * (n * (n + 1) // 2 + n * n + n),
+                        B * n ** 3 / 3))]
+        for k in ((1, 30) if n == 30 else (1,)):
             r = torch.as_tensor(rng.normal(size=(B, n, k)), dtype=f32,
                                 device=dev)
-            times[("sub", B, k)] = (
-                call_ms(lambda: cuda_chol.chol_sub(*F, r)),
-                call_ms(lambda: chol.plain_solve(*Fp, r)),
-                call_ms(lambda: torch.cholesky_solve(r, Fp[0])))
-    for (kind, B, k), ((ms, dms), (pms, pdms), (lms, ldms)) in times.items():
-        print(f"[time] {card}: spd {kind} B={B} n={n}"
-              f"{f' k={k}' if k else ''}: device time a call, kernel "
-              f"{dms:.4f} ms, plain {pdms:.4f} ms, library {ldms:.4f} ms; a "
-              f"call by CUDA events (host-bound), kernel {ms:.4f} ms, plain "
-              f"{pms:.4f} ms, library {lms:.4f} ms (means of 50)",
-              flush=True)
+            cases.append((("sub", B, n, k),
+                          lambda r=r: cuda_chol.chol_sub(*F, r),
+                          lambda r=r: chol.plain_solve(*Fp, r),
+                          lambda r=r: torch.cholesky_solve(r, Fp[0]),
+                          bound(4 * B * (n * (n - 1) // 2 + n + 2 * n * k),
+                                B * 2 * n * n * k)))
+        for key, kern, plain, lib, b in cases:
+            t = turns({"kernel": kern, "library": lib})
+            ms, lms = event_ms(kern), event_ms(lib)
+            pms, pw = call_ms(plain)
+            kind, k = key[0], key[3]
+            times[key] = (median([w.ms for w in t["kernel"]]), pw.ms,
+                          median([w.ms for w in t["library"]]), b)
+            clock, draw, limit = zip(*(c.split(",") for c in t["clocks"]))
+            what = f"spd {kind} B={B} n={n}{f' k={k}' if k else ''}"
+            print(f"[time] {card}: {what}: device time a call, median of 6 "
+                  f"windows in turns: {turns_line('kernel', t['kernel'])}, "
+                  f"{turns_line('library', t['library'])}; plain "
+                  f"{pw.ms:.5f} ms; bound {b[0]:.6f} ms ({b[1]}); a call by "
+                  f"CUDA events (host-bound): kernel {ms:.4f}, plain "
+                  f"{pms:.4f}, library {lms:.4f} ms; SM clock {span(clock)} "
+                  f"MHz, power draw {span(draw)} W, power limit "
+                  f"{span(limit)} W over the windows", flush=True)
+            print(f"[time] {card}: {what}: the library call launched "
+                  + ", ".join(f"{c:g} x {name[:72]}" for name, c in
+                              t["library"][-1].launches.items()), flush=True)
 
-    src = "apf_quadruped_tpu_torch/csrc/spd_chol.cu"
-    B = 64
-    bf = bound(4 * B * (2 * n * n + n), B * n ** 3 / 3)
-    bs = bound(4 * B * (n * n + n + 2 * n), B * 2 * n * n)
-    print(f"[bound] {card}: spd factor B={B} n={n}: {bf[0]:.6f} ms "
-          f"({bf[1]}); sub k=1: {bs[0]:.6f} ms ({bs[1]}): the launch floor, "
-          f"not these, sets their time", flush=True)
+    fac, sub = times[("factor", 64, 30, 0)], times[("sub", 64, 30, 1)]
     return [
         {"name": "spd_chol_factor", "route": "cuda", "source": src,
          "replaces": "apf_quadruped_tpu/ops/pallas_chol.py:130",
          "launches": launches["spd_chol_factor"], "max_abs_err": err_f,
-         "ms": times[("factor", B, 0)][0][1],
-         "plain_ms": times[("factor", B, 0)][1][1],
-         "bound_ms": bf[0], "bound_by": bf[1],
-         "library_ms": times[("factor", B, 0)][2][1]},
+         "ms": fac[0], "plain_ms": fac[1], "bound_ms": fac[3][0],
+         "bound_by": fac[3][1], "library_ms": fac[2]},
         {"name": "spd_chol_sub", "route": "cuda", "source": src,
          "replaces": "apf_quadruped_tpu/ops/pallas_chol.py:158",
          "launches": launches["spd_chol_sub"], "max_abs_err": err_s,
-         "ms": times[("sub", B, 1)][0][1],
-         "plain_ms": times[("sub", B, 1)][1][1],
-         "bound_ms": bs[0], "bound_by": bs[1],
-         "library_ms": times[("sub", B, 1)][2][1]}]
+         "ms": sub[0], "plain_ms": sub[1], "bound_ms": sub[3][0],
+         "bound_by": sub[3][1], "library_ms": sub[2]}]
 
 
 def fused_slice(dev, card, build_s, golden, compare_solve, x0, refs, x1,
@@ -720,32 +896,37 @@ def fused_slice(dev, card, build_s, golden, compare_solve, x0, refs, x1,
                    B * H * f_vec)}
     rec = {}
     for name, (kern, plain, nbytes, flops) in works.items():
-        (ms, dms), (pms, pdms) = call_ms(kern, 20), call_ms(plain, 5)
+        (ms, w), (pms, pw) = call_ms(kern, 20), call_ms(plain, 5)
         b = bound(nbytes, flops)
-        rec[name] = (dms, pdms, b, None)
+        rec[name] = (w.ms, pw.ms, b, None)
         print(f"[time] {card}: fused {name} B={B} H={H}: device time "
-              f"{dms:.4f} ms (plain {pdms:.4f} ms), CUDA events {ms:.4f} ms "
-              f"(plain {pms:.4f} ms); bound {b[0]:.4f} ms ({b[1]}: "
-              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP), kernel at "
-              f"{100 * b[0] / dms:.2f}% of bound", flush=True)
+              f"{w.ms:.4f} ms (window total {w.total_ms:.4f} ms, "
+              f"{w.share:.2%} of launches recorded; plain {pw.ms:.4f} ms), "
+              f"CUDA events {ms:.4f} ms (plain {pms:.4f} ms); bound "
+              f"{b[0]:.4f} ms ({b[1]}: {nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.3f} GFLOP), kernel at "
+              f"{100 * b[0] / w.ms:.2f}% of bound", flush=True)
 
     Bc, n = 2048, 12
     M = spd(Bc, n)
     for k in (13, 1):
         r = torch.as_tensor(rng.normal(size=(Bc, n, k)), dtype=f32,
                             device=dev)
-        (ms, dms), (pms, pdms), (lms, ldms) = (
+        (ms, w), (pms, pw), (lms, lw) = (
             call_ms(lambda: cuda_chol.chol_solve(M, r)),
             call_ms(lambda: chol.plain_chol_solve(M, r)),
             call_ms(lambda: torch.linalg.solve(M, r)))
-        b = bound(4 * Bc * (n * n + 2 * n * k),
+        # M's lower triangle is read (as the factor's), rhs read, X written
+        b = bound(4 * Bc * (n * (n + 1) // 2 + 2 * n * k),
                   Bc * (n ** 3 / 3 + 2 * n * n * k))
         if k == 13:
-            rec["chol_solve"] = (dms, pdms, b, ldms)
+            rec["chol_solve"] = (w.ms, pw.ms, b, lw.ms)
         print(f"[time] {card}: chol_solve B={Bc} n={n} k={k}: device time "
-              f"{dms:.4f} ms, plain {pdms:.4f} ms, torch.linalg.solve "
-              f"{ldms:.4f} ms; CUDA events {ms:.4f} / {pms:.4f} / {lms:.4f} "
-              f"ms; bound {b[0]:.6f} ms ({b[1]})", flush=True)
+              f"{w.ms:.4f} ms (window total {w.total_ms:.4f} ms, "
+              f"{w.share:.2%} of launches recorded), plain {pw.ms:.4f} ms, "
+              f"torch.linalg.solve {lw.ms:.4f} ms; CUDA events {ms:.4f} / "
+              f"{pms:.4f} / {lms:.4f} ms; bound {b[0]:.6f} ms ({b[1]})",
+              flush=True)
 
     torch.cuda.synchronize()
     t = time.perf_counter()

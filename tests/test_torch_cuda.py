@@ -268,9 +268,14 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
-@pytest.mark.parametrize("n", [18, 30, 64])
-@pytest.mark.parametrize("B", [1, 64, 1030])
-@pytest.mark.parametrize("k", [1, 30])
+# The kernels compile to two widths, 18 and 30: n <= 18 runs at 18 and
+# 19 <= n <= 30 at 30, padded with an identity block; 31 <= n <= 64 takes
+# the wide bodies (runtime n).  k < 8 runs lanes over rows, k >= 8 lanes
+# over the right-hand sides, 32 at a time.  The sizes below sit on each
+# edge; the batches on either side of the loop's 64.
+@pytest.mark.parametrize("n", [1, 2, 17, 18, 19, 29, 30, 31, 32, 33, 64])
+@pytest.mark.parametrize("B", [1, 63, 64, 65, 1030])
+@pytest.mark.parametrize("k", [1, 2, 7, 8, 30, 33])
 def test_spd_kernels_match_plain(rng, dev, n, B, k):
     H = _spd(rng, B, n, dev)
     r = torch.as_tensor(rng.normal(size=(B, n, k)), dtype=torch.float32,
@@ -325,6 +330,85 @@ def test_spd_kernels_batch_shapes_and_strides(rng, dev):
     wide = torch.zeros(12, 18, 10, device=dev)
     wide[..., ::2] = r
     assert torch.equal(chol.spd_solve((L, d), wide[..., ::2]), X)
+
+
+@pytest.mark.parametrize("n", [2, 17, 18, 19, 30, 64])
+def test_spd_kernels_bad_lanes_leave_the_rest(rng, dev, n):
+    """A lane that is not positive definite and a lane with a NaN below the
+    diagonal come back all NaN from the factor and the substitution; every
+    other lane is bit for bit what it is in a batch without them."""
+    H = _spd(rng, 9, n, dev)
+    r = torch.as_tensor(rng.normal(size=(9, n, 3)), dtype=torch.float32,
+                        device=dev)
+    L0, d0 = cuda_chol.chol_factor(H)
+    X0 = cuda_chol.chol_sub(L0, d0, r)
+    bad = H.clone()
+    bad[2, n - 1, n - 1] = -1.0
+    bad[6, n - 1, 0] = bad[6, 0, n - 1] = float("nan")
+    L, d = cuda_chol.chol_factor(bad)
+    X = cuda_chol.chol_sub(L, d, r)
+    for lane in (2, 6):
+        assert bool(L[lane].isnan().all() & d[lane].isnan().all()
+                    & X[lane].isnan().all())
+    ok = [0, 1, 3, 4, 5, 7, 8]
+    assert torch.equal(L[ok], L0[ok]) and torch.equal(d[ok], d0[ok])
+    assert torch.equal(X[ok], X0[ok])
+
+
+@pytest.mark.parametrize("n", [5, 18, 19, 30, 31, 64])
+def test_spd_factor_reads_the_lower_triangle_only(rng, dev, n):
+    """Anything in H's strict upper triangle, NaN included, leaves L and
+    dinv unchanged bit for bit."""
+    H = _spd(rng, 4, n, dev)
+    L, d = cuda_chol.chol_factor(H)
+    upper = torch.triu(torch.ones(n, n, dtype=torch.bool, device=dev), 1)
+    junk = torch.as_tensor(rng.normal(size=(4, n, n)) * 1e3,
+                           dtype=torch.float32, device=dev)
+    junk[1] = float("nan")
+    L2, d2 = cuda_chol.chol_factor(torch.where(upper, junk, H))
+    assert torch.equal(L2, L) and torch.equal(d2, d)
+
+
+@pytest.mark.parametrize("n", [18, 30, 64])
+@pytest.mark.parametrize("k", [1, 30])
+def test_spd_kernels_lanes_are_independent(rng, dev, n, k):
+    """One lane's L and X are bit for bit the same whatever its batch
+    neighbours hold, and alone in a batch of one."""
+    H = _spd(rng, 65, n, dev)
+    r = torch.as_tensor(rng.normal(size=(65, n, k)), dtype=torch.float32,
+                        device=dev)
+    L, d = cuda_chol.chol_factor(H)
+    X = cuda_chol.chol_sub(L, d, r)
+    H2, r2 = _spd(rng, 65, n, dev), torch.randn_like(r)
+    H2[40], r2[40] = H[40], r[40]
+    L2, d2 = cuda_chol.chol_factor(H2)
+    X2 = cuda_chol.chol_sub(L2, d2, r2)
+    L1, d1 = cuda_chol.chol_factor(H[40:41])
+    X1 = cuda_chol.chol_sub(L1, d1, r[40:41])
+    for Lo, do, Xo in ((L2[40], d2[40], X2[40]), (L1[0], d1[0], X1[0])):
+        assert torch.equal(Lo, L[40]) and torch.equal(do, d[40])
+        assert torch.equal(Xo, X[40])
+
+
+@pytest.mark.parametrize("n", [18, 30])
+def test_spd_kernels_unaligned_buffers(rng, dev, n):
+    """Operands that do not start on a 16-byte boundary (a contiguous view
+    one float into its storage) are staged row by row instead of with
+    16-byte copies, with the same answer bit for bit."""
+    H = _spd(rng, 5, n, dev)
+    L, d = cuda_chol.chol_factor(H)
+    r = torch.as_tensor(rng.normal(size=(5, n, 1)), dtype=torch.float32,
+                        device=dev)
+    X = cuda_chol.chol_sub(L, d, r)
+    Hs = torch.empty(H.numel() + 1, device=dev)
+    Hs[1:] = H.reshape(-1)
+    Hu = Hs[1:].view(H.shape)
+    assert Hu.data_ptr() % 16 != 0 and Hu.is_contiguous()
+    Lu, du = cuda_chol.chol_factor(Hu)
+    assert torch.equal(Lu, L) and torch.equal(du, d)
+    Ls = torch.empty(L.numel() + 1, device=dev)
+    Ls[1:] = L.reshape(-1)
+    assert torch.equal(cuda_chol.chol_sub(Ls[1:].view(L.shape), d, r), X)
 
 
 def test_spd_kernels_reject_what_they_do_not_take(rng, dev):

@@ -81,6 +81,7 @@ def test_slice_imports_no_jax():
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "ipm_phases.py",
+                                    "spd_turns.py",
                                     "tests/test_torch_cuda.py"])
 def test_gpu_scripts_import_no_jax(script):
     """What runs on the GPU machine, which has no JAX, imports none of it

@@ -56,6 +56,31 @@ def test_plain_spd_pair_matches_pallas_kernels(rng, n, k):
     assert bool(L_bad[[0, 2, 3, 4]].isfinite().all())
 
 
+@pytest.mark.parametrize("n,width", [(1, 18), (17, 18), (19, 30), (29, 30)])
+def test_identity_padding_is_exact(rng, n, width):
+    """The CUDA kernels run an n x n matrix at a compile-time width >= n,
+    padded with an identity block (csrc/spd_chol.cu): the factor of
+    diag(H, I) is diag(L_H, I), and the padded solve with zero rows below
+    the right-hand side gives the unpadded solution over zeros."""
+    A = rng.normal(size=(3, n, n))
+    H = A @ A.transpose(0, 2, 1) + n * np.eye(n)
+    rhs = rng.normal(size=(3, n, 2))
+    Hp = np.tile(np.eye(width), (3, 1, 1))
+    Hp[:, :n, :n] = H
+    L, d = chol.plain_factor(T(H))
+    Lp, dp = chol.plain_factor(T(Hp))
+    close(Lp[:, :n, :n], L, 1e-12)
+    close(dp[:, :n], d, 1e-12)
+    assert torch.equal(Lp[:, n:, :], T(Hp)[:, n:, :])
+    assert torch.equal(dp[:, n:], torch.ones(3, width - n, dtype=dp.dtype))
+    rp = np.zeros((3, width, 2))
+    rp[:, :n] = rhs
+    Xp = chol.plain_solve(Lp, dp, T(rp))
+    close(Xp[:, :n], chol.plain_solve(L, d, T(rhs)), 1e-12)
+    assert torch.equal(Xp[:, n:], torch.zeros(3, width - n, 2,
+                                              dtype=Xp.dtype))
+
+
 def _random_qp(rng, n, m, p, batch):
     M = rng.normal(size=batch + (n, n))
     P = np.einsum("...ij,...kj->...ik", M, M) / n + 0.5 * np.eye(n)
