@@ -59,7 +59,8 @@ def main(argv=None):
     ps.add_argument("--cycles", type=int, default=6)
     ps.add_argument("--iters", type=int, default=15)
     ps.add_argument("--seed", type=int, default=0)
-    ps.add_argument("--robot", default="dogbot")
+    ps.add_argument("--robot", default="dogbot",
+                    choices=("dogbot", "anymal", "hyq"))
     ps.add_argument("--device", default="cuda",
                     help="torch device of the run (default cuda; cpu runs "
                     "the kernels' plain versions)")

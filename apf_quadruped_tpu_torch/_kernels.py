@@ -108,11 +108,12 @@ def spd_chol(src: Path = CSRC / "spd_chol.cu",
 
 
 @functools.cache
-def fused_riccati() -> ctypes.CDLL:
+def fused_riccati(src: Path = CSRC / "fused_riccati.cu",
+                  name: str = "fused_riccati") -> ctypes.CDLL:
     """The fused Riccati passes' library (csrc/fused_riccati.cu: rollout,
-    factor and vector kernels), built and loaded once per process."""
-    lib = ctypes.CDLL(str(build("fused_riccati",
-                                [CSRC / "fused_riccati.cu"])))
+    factor and vector kernels, or another version of it at `src`, built as
+    `name`), built and loaded once per process."""
+    lib = ctypes.CDLL(str(build(name, [src])))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     dims = [i32] * 5 + [ptr]                      # B, H, nx, nu, m, stream
     lib.fused_rollout_launch.argtypes = [ptr] * 12 + dims
@@ -128,7 +129,8 @@ def fused_riccati() -> ctypes.CDLL:
 
 @functools.cache
 def fused_riccati_limits() -> tuple[int, int, int, int]:
-    """(NX_MAX, NU_MAX, M_MAX, the rollout's largest H) of the fused
+    """(NX_MAX, NU_MAX, M_MAX, the largest H of the rollout and the vector
+    pass, which keep H knots' x and kff in shared memory) of the fused
     kernels."""
     vals = [ctypes.c_int() for _ in range(4)]
     fused_riccati().fused_riccati_limits(*[ctypes.byref(v) for v in vals])

@@ -15,38 +15,53 @@
 //               Once an iteration.
 //   vector   <- _vector_kernel (via _vector_call): the affine LQR pass against
 //               the stored factors: backward g = rx_k + G' vm_k + B_k' sv,
-//               kff_k = M_k^-1 g, sv <- A_k' sv - K_k' g (kff is stashed in the
-//               du output, as on the TPU); forward du_k = -K_k dx - kff_k,
-//               gdu_k = G du_k, dx <- A_k dx + B_k du_k.  Twice an iteration
-//               (predictor and corrector).
+//               kff_k = M_k^-1 g, sv <- A_k' sv - K_k' g; forward
+//               du_k = -K_k dx - kff_k, gdu_k = G du_k,
+//               dx <- A_k dx + B_k du_k.  Twice an iteration (predictor and
+//               corrector).
 // Arrays are batch-first and contiguous per scenario: A (B, H, nx, nx),
 // Bm (B, H, nx, nu), vectors (B, H, rows), L (B, H, nu, nu), K (B, H, nu, nx);
 // G (m, nu), R (nu, nu), Q (nx, nx) are shared by the batch.
 //
-// Design: one warp per scenario, four scenarios a block, as in
-// resident_ipm.cu, whose per-knot algebra these kernels repeat (they keep
-// their own copy, so that the resident kernel's code and registers stay as
-// they are).  The horizon is a loop inside the warp (the TPU's sequential
-// fori_loop); the knot's A_k and B_k are read from device memory into
-// shared memory once per knot, coalesced, and the 32 lanes share the
-// entries of the small products.  The rollout keeps its x_k history in
-// shared memory for the backward sweep (H * nx floats a warp); the factor
-// pass keeps P in shared memory across the knots and factors M_k there; L,
-// 1 / diag(L) and K go to device memory because the vector pass reads them.
-// A matrix that is not positive definite makes that knot's L, dinv and K
-// NaN, and with them every earlier knot, as the plain version
-// (cholesky_ex with a NaN fill) does: the interior point quarantines the
-// lane.
+// Design: one warp per scenario, four scenarios a block; the horizon is a
+// loop inside the warp (the TPU's sequential fori_loop).  The rollout
+// copies each knot's A_k and B_k into shared memory with plain loads and
+// keeps its x_k history there for the backward sweep (H * nx floats a
+// warp).  The factor and vector passes follow the resident kernel
+// (resident_ipm.cu, whose per-knot algebra they repeat in their own copy):
+//  - Compile-time widths: 13 states, 12 inputs, 24 or 32 constraint rows
+//    (two instances).  A smaller problem is padded as it is staged: zero
+//    rows and columns of A, B, Q, G and W, an identity block of R, so M is
+//    diag(M, I), L diag(L, I), 1 / diag(L) 1 and K 0 on the padding, and
+//    only the real block is written out.  Every index of the products is a
+//    constant and the 13-wide products unroll.
+//  - Staging: a sweep over the horizon stages knot k -+ 1's inputs into a
+//    two-slot shared-memory ring a warp by 4-byte cp.async (a knot's A_k is
+//    676 bytes, so its arrays start on 4-byte boundaries only) while the
+//    warp works on knot k.  The factor pass stages A_k and B_k transposed,
+//    rows of 16, so that its products read them as float4s.
+//  - The factor's chain in registers: a lane holds a column of P (or of
+//    A) across the 13-wide products, half of the rows a lane; M's lower
+//    triangle is one entry a lane, its Gram in the plain version's order,
+//    (G_ri w_r) G_rj over r; the Cholesky keeps a row of M a lane and
+//    broadcasts each pivot and column by shuffles; K is solved for its 13
+//    columns at once in registers; P is read symmetrised as the next knot
+//    loads it.  A knot whose M is not positive definite (!(d > 0), NaN
+//    included) writes NaN L, dinv and K, and so does every earlier knot, as
+//    the plain version (cholesky_ex with a NaN fill) does: the interior
+//    point quarantines the lane.
+//  - The vector pass's substitutions by shuffles: a lane holds row `lane`
+//    and column `lane` of L_k, so (L L') kff = g is 2 x 12 steps of one
+//    shuffle and one FMA; kff stays in shared memory (H x 12 floats a warp)
+//    for the forward sweep.
 //
-// What bounds them on the H100: on the TPU these passes were bound by the
-// device-memory traffic between the kernels (L, D and K make a round trip
-// every iteration).  At B = 2048, H = 20 each pass moves 70-120 MB
-// (20-35 us at 3.35 TB/s, which sets their bound: the operations take
-// less), but runs H dependent knots of ~0.1-1k dependent warp steps each,
-// so the latency of that serial chain sets their time, as in the resident
-// kernel.  The design keeps every knot's working set in shared
-// memory and reads each device array once per pass; what would help is the
-// resident kernel's fusion of the passes (L/D/K never leave the SM).
+// What bounds them on the H100: each pass moves 70-120 MB at B = 2048,
+// H = 20 (20-35 us at 3.35 TB/s, which sets their bound: the operations
+// take less), but runs H dependent knots, each a chain of dependent
+// shuffles, shared-memory round trips and FMAs, so the latency of that
+// chain, and at one wave (15.5 warps an SM) the issue slots the SM's warps
+// share, set their time.  PERF.md has their times against the bound
+// (chip_smoke.py, fused_turns.py).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 // -fPIC, without --use_fast_math.
@@ -176,234 +191,569 @@ __global__ void __launch_bounds__(WARPS * 32)
 }
 
 // ---------------------------------------------------------------------------
+// factor and vector passes: compile-time widths, knots staged by cp.async
+// ---------------------------------------------------------------------------
+
+constexpr int NX = NX_MAX;   // states and inputs of the factor and vector
+constexpr int NU = NU_MAX;   // kernels; smaller problems are padded as staged
+constexpr int RS = 16;       // row stride of a staged 13-wide row: 4 float4s
+constexpr int NL = NU * (NU + 1) / 2;
+constexpr unsigned FULL = 0xffffffffu;
+
+// 4 bytes from device memory into shared memory, asynchronously: a knot's
+// A_k (676 bytes) and B_k (624) start on 4-byte boundaries only
+__device__ __forceinline__ void cp4(float* dst, const float* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
+#else
+  *dst = *src;
+#endif
+}
+__device__ __forceinline__ void cp_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+#endif
+}
+// a compiler-only barrier: loads after it are not hoisted above it, which
+// bounds how many operands an unrolled loop holds in registers at once
+__device__ __forceinline__ void reg_fence() { asm volatile("" ::: "memory"); }
+
+// a value the compiler cannot see through: what is computed from it is
+// computed after this point, not hoisted above it
+__device__ __forceinline__ int opaque(int v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+
+// Stage the rows x cols row-major matrix at src (rows <= R, cols <= C) into
+// dst[i * DS + j], or transposed into dst[j * DS + i] (TR), lanes over its
+// entries.  Entries of the R x C frame outside rows x cols are not written:
+// they keep the zeros the kernel puts there first (the padding).
+template <int R, int C, int DS, bool TR>
+__device__ __forceinline__ void stage_mat(float* dst, const float* src,
+                                          int rows, int cols, int lane) {
+  if (rows == R && cols == C) {   // the production widths: no division
+#pragma unroll
+    for (int t = 0; t < (R * C + 31) / 32; ++t) {
+      const int e = t * 32 + lane;
+      if (e < R * C) {
+        if (!TR && DS == C) {
+          cp4(dst + e, src + e);
+        } else {
+          const int i = e / C, j = e % C;
+          cp4(dst + (TR ? j * DS + i : i * DS + j), src + e);
+        }
+      }
+    }
+  } else {
+    for (int e = lane; e < rows * cols; e += 32) {
+      const int i = e / cols, j = e % cols;
+      cp4(dst + (TR ? j * DS + i : i * DS + j), src + e);
+    }
+  }
+}
+__device__ __forceinline__ void stage_vec(float* dst, const float* src, int n,
+                                          int lane) {
+  if (lane < n) cp4(dst + lane, src + lane);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+// acc + the sum over t < N of x[t] y[t] in ascending t, one accumulator
+// (the plain loops' order).  x: a 16-byte aligned row in shared memory;
+// y: registers (dot_sr) or another such row (dot_ss).
+template <int N>
+__device__ __forceinline__ float dot_sr(const float* x, const float* y,
+                                        float acc) {
+#pragma unroll
+  for (int t = 0; t < N; t += 4) {
+    const float4 v = ld4(x + t);
+    acc += v.x * y[t];
+    if (t + 1 < N) acc += v.y * y[t + 1];
+    if (t + 2 < N) acc += v.z * y[t + 2];
+    if (t + 3 < N) acc += v.w * y[t + 3];
+  }
+  return acc;
+}
+template <int N>
+__device__ __forceinline__ float dot_ss(const float* x, const float* y,
+                                        float acc) {
+#pragma unroll
+  for (int t = 0; t < N; t += 4) {
+    const float4 v = ld4(x + t), u = ld4(y + t);
+    acc += v.x * u.x;
+    if (t + 1 < N) acc += v.y * u.y;
+    if (t + 2 < N) acc += v.z * u.z;
+    if (t + 3 < N) acc += v.w * u.w;
+  }
+  return acc;
+}
+// the same with x strided by XS in shared memory (a column)
+template <int N, int XS>
+__device__ __forceinline__ float dot_cs(const float* x, const float* y,
+                                        float acc) {
+#pragma unroll
+  for (int t = 0; t < N; t += 4) {
+    const float4 u = ld4(y + t);
+    acc += x[t * XS] * u.x;
+    if (t + 1 < N) acc += x[(t + 1) * XS] * u.y;
+    if (t + 2 < N) acc += x[(t + 2) * XS] * u.z;
+    if (t + 3 < N) acc += x[(t + 3) * XS] * u.w;
+  }
+  return acc;
+}
+template <int N>
+__device__ __forceinline__ void load_row(float* out, const float* x) {
+#pragma unroll
+  for (int t = 0; t < N; t += 4) {
+    const float4 v = ld4(x + t);
+    out[t] = v.x;
+    if (t + 1 < N) out[t + 1] = v.y;
+    if (t + 2 < N) out[t + 2] = v.z;
+    if (t + 3 < N) out[t + 3] = v.w;
+  }
+}
+
+// block-shared constants of the factor and vector passes, padded: G with
+// zero rows (m < MP) and zero columns, R with an identity block on the
+// padded inputs, Q with zeros
+template <int MP>
+struct __align__(16) PassConsts {
+  float GT[NU * MP];   // G': row j is input j's column of G
+  float G[MP * NU];    // G's rows
+  float R[NU * NU];
+  float Q[NX * NX];
+  int tri[NL];         // entry e of a packed lower triangle -> 16 i + j
+};
+
+template <int MP>
+__device__ void load_pass_consts(PassConsts<MP>& c, const float* G,
+                                 const float* R, const float* Q,
+                                 const Dims& d) {
+  for (int e = threadIdx.x; e < NU * MP; e += blockDim.x) {
+    const int j = e / MP, r = e % MP;
+    const float v = (j < d.nu && r < d.m) ? G[r * d.nu + j] : 0.f;
+    c.GT[e] = v;
+    c.G[r * NU + j] = v;
+  }
+  if (R)
+    for (int e = threadIdx.x; e < NU * NU; e += blockDim.x) {
+      const int i = e / NU, j = e % NU;
+      c.R[e] = (i < d.nu && j < d.nu) ? R[i * d.nu + j] : (i == j ? 1.f : 0.f);
+    }
+  if (Q)
+    for (int e = threadIdx.x; e < NX * NX; e += blockDim.x) {
+      const int i = e / NX, j = e % NX;
+      c.Q[e] = (i < d.nx && j < d.nx) ? Q[i * d.nx + j] : 0.f;
+    }
+  if (threadIdx.x < NL) {
+    const int e = threadIdx.x;
+    int i = 0;
+    while ((i + 1) * (i + 2) / 2 <= e) ++i;
+    c.tri[e] = 16 * i + (e - i * (i + 1) / 2);
+  }
+  __syncthreads();
+}
+
+// One sweep of a warp over the horizon, forward or backward: request(k,
+// slot) stages knot k's inputs by cp.async; knot k + 1 (k - 1) is
+// requested into the other slot of the ring before the warp starts on
+// knot k.  The first __syncwarp of a step orders the previous step's
+// shared-memory work before the slot it read is staged again.
+template <class Request, class Body>
+__device__ __forceinline__ void sweep(int H, bool fwd, float* ring, int slot,
+                                      Request request, Body body) {
+  auto knot = [&](int step) { return fwd ? step : H - 1 - step; };
+  __syncwarp();
+  request(knot(0), ring);
+  cp_commit();
+  for (int step = 0; step < H; ++step) {
+    __syncwarp();
+    if (step + 1 < H) {
+      request(knot(step + 1), ring + ((step + 1) & 1) * slot);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncwarp();
+    body(knot(step), ring + (step & 1) * slot);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Riccati factor pass
 // ---------------------------------------------------------------------------
 
-struct FactorSmem {
-  float A[NX_MAX * NX_MAX], Bm[NX_MAX * NU_MAX];
-  float P[NX_MAX * NX_MAX], BtP[NU_MAX * NX_MAX], M[NU_MAX * NU_MAX];
-  float BtPA[NU_MAX * NX_MAX], AtP[NX_MAX * NX_MAX], K[NU_MAX * NX_MAX];
-  float dinv[NU_MAX], w[M_MAX];
+template <int MP>
+struct FactorSlot {    // one knot's inputs, staged transposed
+  float At[NX * RS];   // A_k': At[i * RS + t] = A_k[t][i]
+  float Bt[NU * RS];   // B_k': Bt[j * RS + i] = B_k[i][j]
+  float w[MP];         // W_k, zeros past m
 };
+struct FactorWork {
+  float Pn[NX * RS];   // P before its symmetrisation (Q at the last knot)
+  float BtP[NU * RS];  // B' P
+  float AtP[NX * RS];  // A' P
+  float M[NU * NU];    // M's lower triangle (rows of 12), then L
+  float Kt[NX * NU];   // K' (rows of 12)
+  float BtPAt[NX * NU];  // (B'PA)' (rows of 12)
+  float dinv[16];
+};
+template <int MP>
+__host__ __device__ constexpr int factor_slot() {
+  return (int)(sizeof(FactorSlot<MP>) / 4);
+}
+template <int MP>
+__host__ __device__ constexpr int factor_warp_floats() {
+  return 2 * factor_slot<MP>() + (int)(sizeof(FactorWork) / 4);
+}
 
-__global__ void __launch_bounds__(WARPS * 32)
+template <int MP>
+__global__ void __launch_bounds__(WARPS * 32, 4)
     factor_kernel(const float* G, const float* R, const float* Q,
                   const float* __restrict__ A, const float* __restrict__ Bm,
                   const float* __restrict__ W, float* __restrict__ L,
                   float* __restrict__ dinv, float* __restrict__ K, Dims d) {
-  __shared__ Consts c;
-  __shared__ FactorSmem smem[WARPS];
-  load_consts(c, G, R, Q, d);
+  __shared__ PassConsts<MP> c;
+  extern __shared__ __align__(16) float dsm[];
+  load_pass_consts(c, G, R, Q, d);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int b = blockIdx.x * WARPS + warp;
-  if (b >= d.B) return;
+  if (b >= d.B) return;   // whole warps only: no block barrier below
   const int H = d.H, nx = d.nx, nu = d.nu, m = d.m;
-  FactorSmem& S = smem[warp];
+  constexpr int SLOT = factor_slot<MP>();
+  float* ring = dsm + warp * factor_warp_floats<MP>();
+  FactorWork& S = *reinterpret_cast<FactorWork*>(ring + 2 * SLOT);
   const size_t bH = (size_t)b * H;
   const float nan = __int_as_float(0x7fc00000);
+  // lanes of the 13-wide products: column `col` of the right-hand operand,
+  // `half` of the rows
+  const int col = lane & 15, half = lane >> 4;
+  const bool colok = col < NX;
 
-  for (int e = lane; e < nx * nx; e += 32) S.P[e] = c.Q[e];
+  for (int e = lane; e < 2 * SLOT; e += 32) ring[e] = 0.f;
+  for (int e = lane; e < NX * NX; e += 32)
+    S.Pn[(e / NX) * RS + e % NX] = c.Q[e];
   bool bad = false;   // uniform: a NaN factor poisons every earlier knot
-  for (int k = H - 1; k >= 0; --k) {
-    __syncwarp();
-    copy(S.A, A + (bH + k) * nx * nx, nx * nx, lane);
-    copy(S.Bm, Bm + (bH + k) * nx * nu, nx * nu, lane);
-    copy(S.w, W + (bH + k) * m, m, lane);
-    __syncwarp();
-    for (int e = lane; e < nu * nx; e += 32) {    // B'P
-      const int j = e / nx, l = e % nx;
-      float acc = 0.f;
-      for (int i = 0; i < nx; ++i) acc += S.Bm[i * nu + j] * S.P[i * nx + l];
-      S.BtP[e] = acc;
-    }
-    for (int e = lane; e < nx * nx; e += 32) {    // A'P
-      const int i = e / nx, l = e % nx;
-      float acc = 0.f;
-      for (int t = 0; t < nx; ++t) acc += S.A[t * nx + i] * S.P[t * nx + l];
-      S.AtP[e] = acc;
-    }
-    __syncwarp();
-    // M = R + G' diag(w) G + B'P B, lower triangle
-    for (int e = lane; e < nu * nu; e += 32) {
-      const int i = e / nu, j = e % nu;
-      if (j > i) continue;
-      float acc = c.R[e];
-      for (int r = 0; r < m; ++r) acc += c.G[r * nu + i] * S.w[r] * c.G[r * nu + j];
-      for (int l = 0; l < nx; ++l) acc += S.BtP[i * nx + l] * S.Bm[l * nu + j];
-      S.M[e] = acc;
-    }
-    for (int e = lane; e < nu * nx; e += 32) {    // B'PA
-      const int j = e / nx, l = e % nx;
-      float acc = 0.f;
-      for (int i = 0; i < nx; ++i) acc += S.BtP[j * nx + i] * S.A[i * nx + l];
-      S.BtPA[e] = acc;
-    }
-    // Cholesky of M, right-looking, in place
-    for (int j = 0; j < nu; ++j) {
-      __syncwarp();
-      const float dj = S.M[j * nu + j];
-      bad |= !(dj > 0.f);
-      const float lj = sqrtf(dj);
-      const float di = 1.f / lj;
-      __syncwarp();
-      if (lane == j) {
-        S.M[j * nu + j] = lj;
-        S.dinv[j] = di;
-      } else if (lane > j && lane < nu) {
-        S.M[lane * nu + j] *= di;
+  bool last = true;   // at the last knot P is Q as it is, unsymmetrised
+
+  auto request = [&](int k, float* slot) {
+    FactorSlot<MP>& X = *reinterpret_cast<FactorSlot<MP>*>(slot);
+    const size_t kk = bH + k;
+    const int ln = opaque(lane);   // offsets anew each knot, not held
+    stage_mat<NX, NX, RS, true>(X.At, A + kk * nx * nx, nx, nx, ln);
+    stage_mat<NX, NU, RS, true>(X.Bt, Bm + kk * nx * nu, nx, nu, ln);
+    stage_vec(X.w, W + kk * m, m, ln);
+  };
+
+  auto body = [&](int k, const float* slot) {
+    const FactorSlot<MP>& X = *reinterpret_cast<const FactorSlot<MP>*>(slot);
+    // B'P and A'P: a lane holds column `col` of P (symmetrised as it is
+    // read), its half of the rows
+    if (colok) {
+      float pc[NX];
+#pragma unroll
+      for (int t = 0; t < NX; ++t) {
+        const float a = S.Pn[t * RS + col];
+        pc[t] = (last || t == col) ? a : 0.5f * (a + S.Pn[col * RS + t]);
       }
-      __syncwarp();
-      for (int e = lane; e < nu * nu; e += 32) {
-        const int i = e / nu, col = e % nu;
-        if (col > j && col <= i) S.M[e] -= S.M[i * nu + j] * S.M[col * nu + j];
+#pragma unroll 1
+      for (int jj = 0; jj < 6; ++jj) {
+        const int j = half * 6 + jj;
+        S.BtP[j * RS + col] = dot_sr<NX>(X.Bt + j * RS, pc, 0.f);
+      }
+#pragma unroll 1
+      for (int ii = 0; ii < 7; ++ii) {
+        const int i = half * 7 + ii;
+        if (i < NX) S.AtP[i * RS + col] = dot_sr<NX>(X.At + i * RS, pc, 0.f);
       }
     }
+    last = false;
     __syncwarp();
+    // B'PA: a lane holds column `col` of A and forms its half of the rows,
+    // stored as rows of (B'PA)' for the K solve and the P update
+    if (colok) {
+      float ac[NX];
+      load_row<NX>(ac, X.At + col * RS);
+#pragma unroll
+      for (int jj = 0; jj < 6; ++jj)
+        S.BtPAt[col * NU + half * 6 + jj] =
+            dot_sr<NX>(S.BtP + (half * 6 + jj) * RS, ac, 0.f);
+    }
+    // the lower triangle of M = R + G' diag(w) G + B'P B, one entry a lane;
+    // the Gram in the plain version's order, (G_ri w_r) G_rj over r.  The
+    // fence every 8 rows bounds the float4s in flight: with all of them
+    // hoisted, the kernel spilled at its 128 registers.
+#pragma unroll 1
+    for (int e = lane; e < NL; e += 32) {
+      const int ij = c.tri[e], i = ij >> 4, j = ij & 15;
+      float acc = c.R[i * NU + j];
+#pragma unroll
+      for (int r = 0; r < MP; r += 4) {
+        if (r % 8 == 0) reg_fence();
+        const float4 gi = ld4(c.GT + i * MP + r), wr = ld4(X.w + r),
+                     gj = ld4(c.GT + j * MP + r);
+        acc += (gi.x * wr.x) * gj.x;
+        acc += (gi.y * wr.y) * gj.y;
+        acc += (gi.z * wr.z) * gj.z;
+        acc += (gi.w * wr.w) * gj.w;
+      }
+      S.M[i * NU + j] = dot_ss<NX>(S.BtP + i * RS, X.Bt + j * RS, acc);
+    }
+    __syncwarp();
+    // Cholesky of M, right-looking, lane i holding row i; the pivot and
+    // the column below it reach the other lanes by shuffles.  A column's
+    // chain is the pivot's shuffle, rsqrt, the scale and one FMA: the next
+    // pivot, fma(-l, l, a[j + 1]) on lane j + 1, is shuffled before the
+    // rest of the column's update.  L_jj = piv rsqrt(piv) and dinv_j =
+    // rsqrt(piv) (sqrtf and an IEEE division cost 20% of the kernel at
+    // B = 256, PERF.md); the update also runs above the diagonal, which
+    // the store masks.
+    const int row = lane < NU ? lane : 0;
+    float rw[NU];
+#pragma unroll
+    for (int j = 0; j < NU; ++j) {
+      const float v = S.M[row * NU + j];
+      rw[j] = (lane < NU && j <= lane) ? v : 0.f;
+    }
+    float mydi = 0.f;
+    float piv = __shfl_sync(FULL, rw[0], 0);   // column 0's pivot
+#pragma unroll
+    for (int j = 0; j < NU; ++j) {
+      const float di = rsqrtf(piv);
+      bad |= !(piv > 0.f);
+      if (lane == j) mydi = di;
+      const float l = rw[j] * di;   // lane > j: L_rj; lane j: L_jj
+      rw[j] = l;
+      const float lu = lane > j ? l : 0.f;   // the rows below j update
+      if (j + 1 < NU)   // the next pivot, ahead of the rest of the column
+        piv = __shfl_sync(FULL, fmaf(-l, l, rw[j + 1]), j + 1);
+#pragma unroll
+      for (int cc = j + 1; cc < NU; ++cc)
+        rw[cc] = fmaf(-lu, __shfl_sync(FULL, lu, cc), rw[cc]);
+    }
+    if (lane < NU) {   // L's row in place of M's, which only this lane read
+#pragma unroll
+      for (int j = 0; j < NU; ++j)
+        S.M[lane * NU + j] = j <= lane ? rw[j] : 0.f;
+      S.dinv[lane] = mydi;
+      if (lane < nu) dinv[(bH + k) * nu + lane] = bad ? nan : mydi;
+    }
+    __syncwarp();
+    // L to device memory, coalesced; zeros above the diagonal
     float* Lk = L + (bH + k) * nu * nu;
-    for (int e = lane; e < nu * nu; e += 32) {
-      const int i = e / nu, j = e % nu;
-      Lk[e] = bad ? nan : (j <= i ? S.M[e] : 0.f);
+    if (nu == NU) {
+#pragma unroll
+      for (int t = 0; t < (NU * NU + 31) / 32; ++t) {
+        const int e = t * 32 + lane;
+        if (e < NU * NU) Lk[e] = bad ? nan : S.M[e];
+      }
+    } else {
+      for (int e = lane; e < nu * nu; e += 32)
+        Lk[e] = bad ? nan : S.M[(e / nu) * NU + e % nu];
     }
-    if (lane < nu) dinv[(bH + k) * nu + lane] = bad ? nan : S.dinv[lane];
-    // K = M^-1 B'PA, one column per lane
-    if (lane < nx) {
-      float col[NU_MAX];
-      for (int j = 0; j < nu; ++j) col[j] = S.BtPA[j * nx + lane];
-      for (int i = 0; i < nu; ++i) {
-        float acc = col[i];
-        for (int t = 0; t < i; ++t) acc -= S.M[i * nu + t] * col[t];
-        col[i] = acc * S.dinv[i];
+    // K = M^-1 B'PA, its 13 columns at once (lane = column): 12 forward
+    // and 12 backward steps, in registers
+    if (lane < NX) {
+      float kc[NU];
+      load_row<NU>(kc, S.BtPAt + lane * NU);
+#pragma unroll
+      for (int i = 0; i < NU; ++i) {
+        reg_fence();
+        kc[i] *= S.dinv[i];
+#pragma unroll
+        for (int r = i + 1; r < NU; ++r) kc[r] -= S.M[r * NU + i] * kc[i];
       }
-      for (int i = nu - 1; i >= 0; --i) {
-        float acc = col[i];
-        for (int t = i + 1; t < nu; ++t) acc -= S.M[t * nu + i] * col[t];
-        col[i] = acc * S.dinv[i];
+#pragma unroll
+      for (int i = NU - 1; i >= 0; --i) {
+        reg_fence();
+        kc[i] *= S.dinv[i];
+#pragma unroll
+        for (int t = 0; t < i; ++t) kc[t] -= S.M[i * NU + t] * kc[i];
       }
-      for (int j = 0; j < nu; ++j) S.K[j * nx + lane] = bad ? nan : col[j];
+#pragma unroll
+      for (int j = 0; j < NU; ++j) S.Kt[lane * NU + j] = kc[j];
+      if (lane < nx) {
+        float* Kk = K + (bH + k) * nu * nx + lane;
+#pragma unroll
+        for (int j = 0; j < NU; ++j)
+          if (j < nu) Kk[j * nx] = bad ? nan : kc[j];
+      }
     }
     __syncwarp();
-    for (int e = lane; e < nu * nx; e += 32) K[(bH + k) * nu * nx + e] = S.K[e];
-    // P <- sym(Q + A'P A - K' B'PA)
-    for (int e = lane; e < nx * nx; e += 32) {
-      const int i = e / nx, l = e % nx;
-      float acc = c.Q[e];
-      for (int t = 0; t < nx; ++t) acc += S.AtP[i * nx + t] * S.A[t * nx + l];
-      for (int j = 0; j < nu; ++j) acc -= S.K[j * nx + i] * S.BtPA[j * nx + l];
-      S.P[e] = acc;
-    }
-    __syncwarp();
-    for (int e = lane; e < nx * nx; e += 32) {
-      const int i = e / nx, l = e % nx;
-      if (l < i) {
-        const float v = 0.5f * (S.P[e] + S.P[l * nx + i]);
-        S.P[e] = v;
-        S.P[l * nx + i] = v;
+    // P <- Q + A'P A - K' B'PA, a lane's column `col`, its half of the rows
+    // (symmetrised as the next knot reads it)
+    if (colok) {
+      float ac[NX], bc[NU];
+      load_row<NX>(ac, X.At + col * RS);
+      load_row<NU>(bc, S.BtPAt + col * NU);
+#pragma unroll 1
+      for (int ii = 0; ii < 7; ++ii) {
+        const int i = half * 7 + ii;
+        if (i < NX) {
+          float acc = dot_sr<NX>(S.AtP + i * RS, ac, c.Q[i * NX + col]);
+          const float* kt = S.Kt + i * NU;
+#pragma unroll
+          for (int j = 0; j < NU; j += 4) {
+            const float4 v = ld4(kt + j);
+            acc -= v.x * bc[j];
+            acc -= v.y * bc[j + 1];
+            acc -= v.z * bc[j + 2];
+            acc -= v.w * bc[j + 3];
+          }
+          S.Pn[i * RS + col] = acc;
+        }
       }
     }
-  }
+  };
+
+  sweep(H, false, ring, SLOT, request, body);
 }
 
 // ---------------------------------------------------------------------------
 // vector (affine LQR) pass against the stored factors
 // ---------------------------------------------------------------------------
 
-struct VectorSmem {
-  float A[NX_MAX * NX_MAX], Bm[NX_MAX * NU_MAX];
-  float L[NU_MAX * NU_MAX], K[NU_MAX * NX_MAX], dinv[NU_MAX];
-  float vm[M_MAX], sv[NX_MAX], g[NU_MAX], v[NU_MAX];
+template <int MP>
+struct VectorSlot {     // one knot's inputs in their own layouts, padded
+  float A[NX * NX + 3];  // A_k (rows of 13)
+  float Bm[NX * NU];     // B_k (rows of 12)
+  float L[NU * NU];      // L_k (backward)
+  float K[NU * NX];      // K_k (rows of 13)
+  float dinv[NU], rx[NU];  // (backward)
+  float vm[MP];            // (backward)
 };
+struct VectorWork {
+  float v[2][16];   // sv (backward) or dx (forward), one buffer a knot
+  float g[16];      // the knot's g (backward) or du (forward)
+};
+template <int MP>
+__host__ __device__ constexpr int vector_slot() {
+  return (int)(sizeof(VectorSlot<MP>) / 4);
+}
+template <int MP>
+__host__ __device__ int vector_warp_floats(int H) {   // ring, work, kff
+  return 2 * vector_slot<MP>() + (int)(sizeof(VectorWork) / 4) + H * NU;
+}
 
-__global__ void __launch_bounds__(WARPS * 32)
+template <int MP>
+__global__ void __launch_bounds__(WARPS * 32, 4)
     vector_kernel(const float* G, const float* __restrict__ A,
                   const float* __restrict__ Bm, const float* __restrict__ L,
                   const float* __restrict__ dinv, const float* __restrict__ K,
                   const float* __restrict__ rx, const float* __restrict__ vm,
                   float* __restrict__ du, float* __restrict__ gdu, Dims d) {
-  __shared__ Consts c;
-  __shared__ VectorSmem smem[WARPS];
-  load_consts(c, G, nullptr, nullptr, d);
+  __shared__ PassConsts<MP> c;
+  extern __shared__ __align__(16) float dsm[];
+  load_pass_consts(c, G, nullptr, nullptr, d);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int b = blockIdx.x * WARPS + warp;
   if (b >= d.B) return;
   const int H = d.H, nx = d.nx, nu = d.nu, m = d.m;
-  VectorSmem& S = smem[warp];
+  constexpr int SLOT = vector_slot<MP>();
+  float* ring = dsm + (size_t)warp * vector_warp_floats<MP>(H);
+  VectorWork& S = *reinterpret_cast<VectorWork*>(ring + 2 * SLOT);
+  float* kff = ring + 2 * SLOT + sizeof(VectorWork) / 4;   // (H, 12)
   const size_t bH = (size_t)b * H;
 
-  // backward: kff_k into du (the forward pass reads it back)
-  if (lane < nx) S.sv[lane] = 0.f;
-  for (int k = H - 1; k >= 0; --k) {
-    __syncwarp();
-    copy(S.A, A + (bH + k) * nx * nx, nx * nx, lane);
-    copy(S.Bm, Bm + (bH + k) * nx * nu, nx * nu, lane);
-    copy(S.L, L + (bH + k) * nu * nu, nu * nu, lane);
-    copy(S.K, K + (bH + k) * nu * nx, nu * nx, lane);
-    copy(S.dinv, dinv + (bH + k) * nu, nu, lane);
-    copy(S.vm, vm + (bH + k) * m, m, lane);
-    __syncwarp();
-    if (lane < nu) {
-      float g = rx[(bH + k) * nu + lane];
-      for (int r = 0; r < m; ++r) g += c.G[r * nu + lane] * S.vm[r];
-      for (int i = 0; i < nx; ++i) g += S.Bm[i * nu + lane] * S.sv[i];
-      S.g[lane] = g;
-      S.v[lane] = g;
-    }
-    // (L L') v = g in place: nu steps of one broadcast and a lane update
-    for (int i = 0; i < nu; ++i) {
-      __syncwarp();
-      const float yi = S.v[i] * S.dinv[i];
-      __syncwarp();
-      if (lane == i) S.v[i] = yi;
-      else if (lane > i && lane < nu) S.v[lane] -= S.L[lane * nu + i] * yi;
-    }
-    for (int i = nu - 1; i >= 0; --i) {
-      __syncwarp();
-      const float xi = S.v[i] * S.dinv[i];
-      __syncwarp();
-      if (lane == i) S.v[i] = xi;
-      else if (lane < i) S.v[lane] -= S.L[i * nu + lane] * xi;
-    }
-    __syncwarp();
-    if (lane < nu) du[(bH + k) * nu + lane] = S.v[lane];
-    float svn = 0.f;
-    if (lane < nx) {
-      for (int l = 0; l < nx; ++l) svn += S.A[l * nx + lane] * S.sv[l];
-      for (int j = 0; j < nu; ++j) svn -= S.K[j * nx + lane] * S.g[j];
-    }
-    __syncwarp();
-    if (lane < nx) S.sv[lane] = svn;
-  }
+  for (int e = lane; e < 2 * SLOT; e += 32) ring[e] = 0.f;
+  if (lane < 16) S.v[0][lane] = 0.f;
+  int p = 0;   // S.v[p] holds this knot's sv (dx); S.v[p ^ 1] gets the next
 
-  // forward: du_k = -K_k dx - kff_k, gdu_k = G du_k; S.sv carries dx,
-  // S.v the knot's du
-  __syncwarp();
-  if (lane < nx) S.sv[lane] = 0.f;
-  for (int k = 0; k < H; ++k) {
+  auto stage_ab = [&](VectorSlot<MP>& X, size_t kk) {
+    stage_mat<NX, NX, NX, false>(X.A, A + kk * nx * nx, nx, nx, lane);
+    stage_mat<NX, NU, NU, false>(X.Bm, Bm + kk * nx * nu, nx, nu, lane);
+    stage_mat<NU, NX, NX, false>(X.K, K + kk * nu * nx, nu, nx, lane);
+  };
+
+  // backward: g = rx_k + G' vm_k + B_k' sv, kff_k = M_k^-1 g (kept in
+  // shared memory for the forward sweep), sv <- A_k' sv - K_k' g.  The
+  // padded inputs' g is 0, so their kff is 0 too.
+  sweep(H, false, ring, SLOT, [&](int k, float* slot) {
+    VectorSlot<MP>& X = *reinterpret_cast<VectorSlot<MP>*>(slot);
+    const size_t kk = bH + k;
+    stage_ab(X, kk);
+    stage_mat<NU, NU, NU, false>(X.L, L + kk * nu * nu, nu, nu, lane);
+    stage_vec(X.dinv, dinv + kk * nu, nu, lane);
+    stage_vec(X.rx, rx + kk * nu, nu, lane);
+    stage_vec(X.vm, vm + kk * m, m, lane);
+  }, [&](int k, const float* slot) {
+    const VectorSlot<MP>& X = *reinterpret_cast<const VectorSlot<MP>*>(slot);
+    const float* sv = S.v[p];
+    float g = 0.f;
+    if (lane < NU) {
+      g = dot_ss<MP>(c.GT + lane * MP, X.vm, X.rx[lane]);
+      g = dot_cs<NX, NU>(X.Bm + lane, sv, g);
+      S.g[lane] = g;
+    }
     __syncwarp();
-    copy(S.A, A + (bH + k) * nx * nx, nx * nx, lane);
-    copy(S.Bm, Bm + (bH + k) * nx * nu, nx * nu, lane);
-    copy(S.K, K + (bH + k) * nu * nx, nu * nx, lane);
-    __syncwarp();
-    if (lane < nu) {
+    if (lane < NX) {
+      float s = dot_cs<NX, NX>(X.A + lane, sv, 0.f);
+#pragma unroll
+      for (int j = 0; j < NU; ++j) s -= X.K[j * NX + lane] * S.g[j];
+      S.v[p ^ 1][lane] = s;
+    }
+    // (L L') kff = g: a lane holds row `lane` and column `lane` of L, so
+    // each of the 2 x 12 steps is one shuffle and one FMA
+    const int r = lane < NU ? lane : 0;
+    float lrow[NU], lcol[NU];
+    load_row<NU>(lrow, X.L + r * NU);
+#pragma unroll
+    for (int t = 0; t < NU; ++t) lcol[t] = X.L[t * NU + r];
+    const float di = X.dinv[r];
+    float v = g;
+#pragma unroll
+    for (int i = 0; i < NU; ++i) {
+      const float y = __shfl_sync(FULL, v * di, i);
+      if (lane == i) v = y;
+      else if (lane > i) v -= lrow[i] * y;
+    }
+#pragma unroll
+    for (int i = NU - 1; i >= 0; --i) {
+      const float x = __shfl_sync(FULL, v * di, i);
+      if (lane == i) v = x;
+      else if (lane < i) v -= lcol[i] * x;
+    }
+    if (lane < NU) kff[k * NU + lane] = v;   // read by this lane only
+    p ^= 1;
+  });
+
+  // forward: du_k = -K_k dx - kff_k, gdu_k = G du_k, dx <- A_k dx + B_k du_k
+  if (lane < 16) S.v[p][lane] = 0.f;
+  sweep(H, true, ring, SLOT, [&](int k, float* slot) {
+    stage_ab(*reinterpret_cast<VectorSlot<MP>*>(slot), bH + k);
+  }, [&](int k, const float* slot) {
+    const VectorSlot<MP>& X = *reinterpret_cast<const VectorSlot<MP>*>(slot);
+    const float* dx = S.v[p];
+    if (lane < NU) {
       float acc = 0.f;
-      for (int i = 0; i < nx; ++i) acc += S.K[lane * nx + i] * S.sv[i];
-      const float dv = -acc - du[(bH + k) * nu + lane];   // this lane's kff
-      S.v[lane] = dv;
-      du[(bH + k) * nu + lane] = dv;
+#pragma unroll
+      for (int i = 0; i < NX; ++i) acc += X.K[lane * NX + i] * dx[i];
+      const float dv = -acc - kff[k * NU + lane];
+      S.g[lane] = dv;
+      if (lane < nu) du[(bH + k) * nu + lane] = dv;
     }
     __syncwarp();
-    for (int r = lane; r < m; r += 32) {
-      float acc = 0.f;
-      for (int j = 0; j < nu; ++j) acc += c.G[r * nu + j] * S.v[j];
-      gdu[(bH + k) * m + r] = acc;
+    if (lane < m)
+      gdu[(bH + k) * m + lane] = dot_ss<NU>(c.G + lane * NU, S.g, 0.f);
+    if (lane < NX) {
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < NX; ++i) s += X.A[lane * NX + i] * dx[i];
+      S.v[p ^ 1][lane] = dot_ss<NU>(X.Bm + lane * NU, S.g, s);
     }
-    float dxn = 0.f;
-    if (lane < nx) {
-      for (int l = 0; l < nx; ++l) dxn += S.A[lane * nx + l] * S.sv[l];
-      for (int j = 0; j < nu; ++j) dxn += S.Bm[lane * nu + j] * S.v[j];
-    }
-    __syncwarp();
-    if (lane < nx) S.sv[lane] = dxn;
-  }
+    p ^= 1;
+  });
 }
 
 bool bad_dims(const Dims& d) {
@@ -413,17 +763,47 @@ bool bad_dims(const Dims& d) {
 
 int blocks(const Dims& d) { return (d.B + WARPS - 1) / WARPS; }
 
+// the largest H of the rollout's x history and the vector pass's kff
+constexpr int H_MAX = (int)(DYN_MAX / (WARPS * NX_MAX * sizeof(float)));
+
+template <int MP>
+int launch_factor(const float* G, const float* R, const float* Q,
+                  const float* A, const float* Bm, const float* W, float* L,
+                  float* dinv, float* K, const Dims& d, cudaStream_t stream) {
+  const size_t dyn = (size_t)WARPS * factor_warp_floats<MP>() * sizeof(float);
+  factor_kernel<MP><<<blocks(d), WARPS * 32, dyn, stream>>>(
+      G, R, Q, A, Bm, W, L, dinv, K, d);
+  return (int)cudaGetLastError();
+}
+
+template <int MP>
+int launch_vector(const float* G, const float* A, const float* Bm,
+                  const float* L, const float* dinv, const float* K,
+                  const float* rx, const float* vm, float* du, float* gdu,
+                  const Dims& d, cudaStream_t stream) {
+  const size_t dyn = (size_t)WARPS * vector_warp_floats<MP>(d.H) *
+                     sizeof(float);
+  if (dyn > 32 * 1024) {   // a long horizon's kff: above the default 48 KB
+    const int err = (int)cudaFuncSetAttribute(
+        vector_kernel<MP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)dyn);
+    if (err != 0) return err;
+  }
+  vector_kernel<MP><<<blocks(d), WARPS * 32, dyn, stream>>>(
+      G, A, Bm, L, dinv, K, rx, vm, du, gdu, d);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Dimension limits compiled into the kernels; the wrappers raise above them.
-void fused_riccati_limits(int* nx_max, int* nu_max, int* m_max,
-                          int* h_max_rollout) {
+void fused_riccati_limits(int* nx_max, int* nu_max, int* m_max, int* h_max) {
   *nx_max = NX_MAX;
   *nu_max = NU_MAX;
   *m_max = M_MAX;
-  *h_max_rollout = (int)(DYN_MAX / (WARPS * NX_MAX * sizeof(float)));
+  *h_max = H_MAX;
 }
 
 // Each launches on `stream` and returns cudaGetLastError() (0 = launched).
@@ -446,9 +826,9 @@ int fused_factor_launch(const float* G, const float* R, const float* Q,
                         int nu, int m, void* stream) {
   const Dims d{B, H, nx, nu, m};
   if (bad_dims(d)) return (int)cudaErrorInvalidValue;
-  factor_kernel<<<blocks(d), WARPS * 32, 0, (cudaStream_t)stream>>>(
-      G, R, Q, A, Bm, W, L, dinv, K, d);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  return m <= 24 ? launch_factor<24>(G, R, Q, A, Bm, W, L, dinv, K, d, s)
+                 : launch_factor<32>(G, R, Q, A, Bm, W, L, dinv, K, d, s);
 }
 
 int fused_vector_launch(const float* G, const float* A, const float* Bm,
@@ -457,10 +837,11 @@ int fused_vector_launch(const float* G, const float* A, const float* Bm,
                         float* gdu, int B, int H, int nx, int nu, int m,
                         void* stream) {
   const Dims d{B, H, nx, nu, m};
-  if (bad_dims(d)) return (int)cudaErrorInvalidValue;
-  vector_kernel<<<blocks(d), WARPS * 32, 0, (cudaStream_t)stream>>>(
-      G, A, Bm, L, dinv, K, rx, vm, du, gdu, d);
-  return (int)cudaGetLastError();
+  if (bad_dims(d) || H > H_MAX) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return m <= 24
+             ? launch_vector<24>(G, A, Bm, L, dinv, K, rx, vm, du, gdu, d, s)
+             : launch_vector<32>(G, A, Bm, L, dinv, K, rx, vm, du, gdu, d, s);
 }
 
 }  // extern "C"

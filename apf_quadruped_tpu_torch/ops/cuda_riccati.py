@@ -321,7 +321,10 @@ def fused_vector(G, A, Bm, L, dinv, K, rx, vm):
     if not _route("fused_vector", A):
         return plain_vector_pass(G, A, Bm, L, dinv, K, rx, vm)
     args = _kernel_args("fused_vector", G, A, Bm, L, dinv, K, rx, vm)
-    B, H, nx, nu, m, _ = _fused_dims(A, Bm, G)
+    B, H, nx, nu, m, h_max = _fused_dims(A, Bm, G)
+    if H > h_max:
+        raise ValueError(f"fused_vector: the kernel keeps kff in shared "
+                         f"memory and takes H <= {h_max}, got H={H}")
     opts = dict(dtype=torch.float32, device=A.device)
     outs = [torch.empty((B, H, nu), **opts), torch.empty((B, H, m), **opts)]
     _launch_fused("fused_vector", _kernels.fused_riccati().fused_vector_launch,

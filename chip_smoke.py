@@ -118,6 +118,22 @@ def knot_flops(nx, nu, m):
     return rollout, factor, vector
 
 
+def pass_work(name, B, H, nx=13, nu=12, m=24):
+    """(bytes, float32 operations) of one call of the fused pass `name`
+    ("rollout", "factor" or "vector"): each input read once, each output
+    written once; knot_flops' operations at every knot."""
+    f_roll, f_fac, f_vec = knot_flops(nx, nu, m)
+    knot_in = nx * nx + nx * nu                      # A_k, B_k
+    return {
+        "rollout": (4 * B * (H * (knot_in + nx + nu + m + nx + nu + m) + nx),
+                    B * H * f_roll),
+        "factor": (4 * B * H * (knot_in + m + nu * nu + nu + nu * nx),
+                   B * H * f_fac),
+        "vector": (4 * B * H * (knot_in + nu * nu + nu + nu * nx + nu + m
+                                + nu + m),
+                   B * H * f_vec)}[name]
+
+
 def event_ms(fn, reps=50):
     """CUDA-event ms of one call of fn, mean over `reps` back-to-back calls
     after one warm-up call."""
@@ -877,25 +893,16 @@ def fused_slice(dev, card, build_s, golden, compare_solve, x0, refs, x1,
     roll, fac = pass_args(d)
     F = cr.fused_factor(*fac)
     vec = (d["G"], d["A"], d["B"], *F, d["rx"], d["vm"])
-    nx, nu, m = 13, 12, 24
-    f_roll, f_fac, f_vec = knot_flops(nx, nu, m)
-    knot_in = nx * nx + nx * nu                      # A_k, B_k
     works = {
         "rollout": (lambda: cr.fused_rollout(*roll),
-                    lambda: cr.plain_rollout(*roll),
-                    4 * B * (H * (knot_in + nx + nu + m + nx + nu + m) + nx),
-                    B * H * f_roll),
+                    lambda: cr.plain_rollout(*roll)),
         "factor": (lambda: cr.fused_factor(*fac),
-                   lambda: cr.plain_factor_pass(*fac),
-                   4 * B * H * (knot_in + m + nu * nu + nu + nu * nx),
-                   B * H * f_fac),
+                   lambda: cr.plain_factor_pass(*fac)),
         "vector": (lambda: cr.fused_vector(*vec),
-                   lambda: cr.plain_vector_pass(*vec),
-                   4 * B * H * (knot_in + nu * nu + nu + nu * nx + nu + m
-                                + nu + m),
-                   B * H * f_vec)}
+                   lambda: cr.plain_vector_pass(*vec))}
     rec = {}
-    for name, (kern, plain, nbytes, flops) in works.items():
+    for name, (kern, plain) in works.items():
+        nbytes, flops = pass_work(name, B, H)
         (ms, w), (pms, pw) = call_ms(kern, 20), call_ms(plain, 5)
         b = bound(nbytes, flops)
         rec[name] = (w.ms, pw.ms, b, None)

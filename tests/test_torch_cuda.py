@@ -570,6 +570,80 @@ def test_fused_passes_match_plain(rng, dev, B, mask_frac):
             cr.fused_vector.launches) == tuple(n + 1 for n in n0)
 
 
+def _factor_vector_against_plain(d):
+    """fused_factor and fused_vector (on the kernel's own factors) against
+    their plain versions, 1e-5 relative to the largest entry; L's exact
+    zeros above the diagonal."""
+    from apf_quadruped_tpu_torch.ops import cuda_riccati as cr
+    fargs = (d["G"], d["Rreg"], d["Q"], d["A"], d["B"], d["W"])
+    F = cr.fused_factor(*fargs)
+    for a, b in zip(F, cr.plain_factor_pass(*fargs)):
+        assert _rel(a, b) <= 1e-5
+    assert bool((torch.triu(F[0], 1) == 0).all())
+    vargs = (d["G"], d["A"], d["B"], *F, d["rx"], d["vm"])
+    for a, b in zip(cr.fused_vector(*vargs), cr.plain_vector_pass(*vargs)):
+        assert _rel(a, b) <= 1e-5
+
+
+# The factor and vector kernels stage knot k -+ 1 into a two-slot ring
+# while they work on knot k: one knot, two (each slot once) and a long
+# horizon (the vector pass's kff for all 30 knots in shared memory).
+@pytest.mark.parametrize("H", [1, 2, 30])
+def test_fused_factor_vector_ring_over_horizons(rng, dev, H):
+    _factor_vector_against_plain(_pass_data(rng, dev, 9, H=H))
+
+
+@pytest.mark.parametrize("B", [1, 2049])
+def test_fused_factor_vector_batch_off_the_block(rng, dev, B):
+    _factor_vector_against_plain(_pass_data(rng, dev, B, H=5))
+
+
+# Compile-time widths 13 / 12 and 24 or 32 rows: smaller problems are
+# padded as the knot is staged (zeros, R's identity block); m > 24 runs
+# the 32-row instance.
+@pytest.mark.parametrize("nx,nu,m", [(1, 1, 1), (6, 4, 8), (13, 12, 5),
+                                     (13, 12, 25), (13, 12, 32)])
+def test_fused_factor_vector_padded_widths(rng, dev, nx, nu, m):
+    _factor_vector_against_plain(_pass_data(rng, dev, 6, H=4, nx=nx, nu=nu,
+                                            m=m))
+
+
+@pytest.mark.parametrize("k_bad", [0, 3, 6])
+def test_fused_factor_nan_knot(rng, dev, k_bad):
+    """A knot whose M is not positive definite: its L, dinv and K and those
+    of every earlier knot are NaN; later knots match the plain version;
+    other lanes are untouched."""
+    from apf_quadruped_tpu_torch.ops import cuda_riccati as cr
+    d = _pass_data(rng, dev, 5, H=7)
+    d["W"][2, k_bad] = -1e3
+    fargs = (d["G"], d["Rreg"], d["Q"], d["A"], d["B"], d["W"])
+    F = cr.fused_factor(*fargs)
+    P = cr.plain_factor_pass(*fargs)
+    # the plain version's factor of knot k_bad is all NaN (cholesky_ex's
+    # info); earlier knots factor a NaN matrix, whose factor on the card
+    # may keep zeros above the diagonal
+    low = torch.ones(12, 12, dtype=torch.bool, device=dev).tril()
+    for n, (a, b) in enumerate(zip(F, P)):
+        assert bool(a[2, :k_bad + 1].isnan().all())
+        ref = b[2, :k_bad + 1]
+        assert bool((ref[..., low] if n == 0 else ref).isnan().all())
+        if k_bad + 1 < 7:
+            assert _rel(a[2, k_bad + 1:], b[2, k_bad + 1:]) <= 1e-5
+        assert _rel(a[[0, 1, 3, 4]], b[[0, 1, 3, 4]]) <= 1e-5
+
+
+def test_fused_vector_on_plain_factors(rng, dev):
+    """The vector pass on L, dinv, K from the plain factor pass gives the
+    plain vector pass's du and gdu."""
+    from apf_quadruped_tpu_torch.ops import cuda_riccati as cr
+    d = _pass_data(rng, dev, 130, H=20)
+    F = cr.plain_factor_pass(d["G"], d["Rreg"], d["Q"], d["A"], d["B"],
+                             d["W"])
+    vargs = (d["G"], d["A"], d["B"], *F, d["rx"], d["vm"])
+    for a, b in zip(cr.fused_vector(*vargs), cr.plain_vector_pass(*vargs)):
+        assert _rel(a, b) <= 1e-5
+
+
 @pytest.mark.parametrize("kw,atol", [({}, ATOL),
                                      (dict(B=130, H=3, NX=4, NU=3, M=4), 1e-4),
                                      (dict(mask_frac=0.0), ATOL)])

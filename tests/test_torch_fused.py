@@ -258,3 +258,54 @@ def test_fused_rejects_state_and_accel_rows(rng):
     qp = convert.stage_qp(_problem(rng))
     with pytest.raises(NotImplementedError, match="stage_bf16"):
         cr.solve_stage_qp_fused(qp, SolverConfig(stage_bf16=True))
+
+
+def _pad_as_the_kernels(d, NX=13, NU=12, MP=24):
+    """The problem as csrc/fused_riccati.cu's factor and vector kernels
+    stage it at their compile-time widths: A, B, Q, G (rows and columns),
+    W, rx and vm padded with zeros, R with an identity block."""
+    def pad(v, shape):
+        out = np.zeros(v.shape[:v.ndim - len(shape)] + shape)
+        out[tuple(slice(0, n) for n in v.shape)] = v
+        return out
+    B, H = d["A"].shape[:2]
+    R = pad(d["Rreg"], (NU, NU))
+    nu = d["Rreg"].shape[0]
+    R[range(nu, NU), range(nu, NU)] = 1.0
+    return dict(G=pad(d["G"], (MP, NU)), Rreg=R, Q=pad(d["Q"], (NX, NX)),
+                A=pad(d["A"], (NX, NX)), B=pad(d["B"], (NX, NU)),
+                W=pad(d["W"], (MP,)), rx=pad(d["rx"], (NU,)),
+                vm=pad(d["vm"], (MP,)))
+
+
+def test_kernel_padding_is_exact(rng):
+    """The factor and vector kernels run nx <= 13, nu <= 12, m <= 24 at
+    13 / 12 / 24, padded as each knot is staged: the plain passes on the
+    padded problem, sliced back, give the unpadded outputs (float64, to
+    1e-12), with L, dinv and K exactly I, 1 and 0 on the padded block and
+    du, gdu exactly 0 on the padded inputs and rows."""
+    nx, nu, m = 6, 4, 8
+    d = {k: np.asarray(v, np.float64)
+         for k, v in _pass_inputs(rng, B=3, H=5, NX=nx, NU=nu, M=m).items()}
+    p = _pad_as_the_kernels(d)
+    names = ("G", "Rreg", "Q", "A", "B", "W")
+    L, D, K = cr.plain_factor_pass(*(_t(d[k]) for k in names))
+    Lp, Dp, Kp = cr.plain_factor_pass(*(_t(p[k]) for k in names))
+    close = dict(rtol=0, atol=1e-12)
+    torch.testing.assert_close(Lp[..., :nu, :nu], L, **close)
+    torch.testing.assert_close(Dp[..., :nu], D, **close)
+    torch.testing.assert_close(Kp[..., :nu, :nx], K, **close)
+    eye = torch.eye(12, dtype=torch.float64)
+    assert torch.equal(Lp[..., nu:, :], eye[nu:].expand_as(Lp[..., nu:, :]))
+    assert torch.equal(Lp[..., :nu, nu:], torch.zeros_like(Lp[..., :nu, nu:]))
+    assert torch.equal(Dp[..., nu:], torch.ones_like(Dp[..., nu:]))
+    assert torch.equal(Kp[..., nu:, :], torch.zeros_like(Kp[..., nu:, :]))
+    assert torch.equal(Kp[..., nx:], torch.zeros_like(Kp[..., nx:]))
+    du, gdu = cr.plain_vector_pass(_t(d["G"]), _t(d["A"]), _t(d["B"]), L, D,
+                                   K, _t(d["rx"]), _t(d["vm"]))
+    dup, gdup = cr.plain_vector_pass(_t(p["G"]), _t(p["A"]), _t(p["B"]), Lp,
+                                     Dp, Kp, _t(p["rx"]), _t(p["vm"]))
+    torch.testing.assert_close(dup[..., :nu], du, **close)
+    torch.testing.assert_close(gdup[..., :m], gdu, **close)
+    assert torch.equal(dup[..., nu:], torch.zeros_like(dup[..., nu:]))
+    assert torch.equal(gdup[..., m:], torch.zeros_like(gdup[..., m:]))

@@ -145,6 +145,23 @@ def test_unported_cli_commands_raise(argv):
         main(argv)
 
 
+def test_sweep_robot_outside_the_choices_is_an_argparse_error(capsys):
+    """--robot takes the JAX CLI's choices (dogbot, anymal, hyq): a typo
+    exits with argparse's code 2 before anything runs."""
+    from apf_quadruped_tpu_torch.__main__ import main
+    with pytest.raises(SystemExit) as exc:
+        main(["sweep", "--robot", "dogbo", "--device", "cpu"])
+    assert exc.value.code == 2
+    assert "invalid choice: 'dogbo'" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("robot", ["anymal", "hyq"])
+def test_sweep_zoo_robots_are_not_ported(robot):
+    from apf_quadruped_tpu_torch.__main__ import main
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 16"):
+        main(["sweep", "--robot", robot, "--device", "cpu"])
+
+
 def test_spd_solve_on_cpu_takes_the_plain_version():
     """CPU tensors never reach the kernel wrappers (no launch counted)."""
     from apf_quadruped_tpu_torch.ops import chol, cuda_chol
