@@ -24,22 +24,44 @@
 // G (m, nu), R (nu, nu), Q (nx, nx) are shared by the batch.
 //
 // Design: one warp per scenario, four scenarios a block; the horizon is a
-// loop inside the warp (the TPU's sequential fori_loop).  The rollout
-// copies each knot's A_k and B_k into shared memory with plain loads and
-// keeps its x_k history there for the backward sweep (H * nx floats a
-// warp).  The factor and vector passes follow the resident kernel
-// (resident_ipm.cu, whose per-knot algebra they repeat in their own copy):
+// loop inside the warp (the TPU's sequential fori_loop).  The factor and
+// vector passes follow the resident kernel (resident_ipm.cu, whose
+// per-knot algebra they repeat in their own copy), and the rollout the
+// factor and vector passes:
 //  - Compile-time widths: 13 states, 12 inputs, 24 or 32 constraint rows
 //    (two instances).  A smaller problem is padded as it is staged: zero
-//    rows and columns of A, B, Q, G and W, an identity block of R, so M is
-//    diag(M, I), L diag(L, I), 1 / diag(L) 1 and K 0 on the padding, and
-//    only the real block is written out.  Every index of the products is a
+//    rows and columns of A, B, Q, G and W (and zero u, zm, q, rx, vm), an
+//    identity block of R, so M is diag(M, I), L diag(L, I), 1 / diag(L) 1
+//    and K 0 on the padding, the padded x, rx and gu are 0, and only the
+//    real block is written out.  Every index of the products is a
 //    constant and the 13-wide products unroll.
-//  - Staging: a sweep over the horizon stages knot k -+ 1's inputs into a
-//    two-slot shared-memory ring a warp by 4-byte cp.async (a knot's A_k is
-//    676 bytes, so its arrays start on 4-byte boundaries only) while the
-//    warp works on knot k.  The factor pass stages A_k and B_k transposed,
-//    rows of 16, so that its products read them as float4s.
+//  - Staging (factor and vector): a sweep over the horizon stages knot
+//    k -+ 1's inputs into a two-slot shared-memory ring a warp by 4-byte
+//    cp.async (a knot's A_k is 676 bytes, so its arrays start on 4-byte
+//    boundaries only) while the warp works on knot k.  The factor pass
+//    stages A_k and B_k transposed, rows of 16, so that its products read
+//    them as float4s.
+//  - Staging (rollout): knot k -+ 2's inputs are loaded into registers
+//    (coalesced, lanes over entries) as the warp starts on knot k, and
+//    stored into the two-slot ring when it is done with knot k + 1, in the
+//    arrays' own layouts.  With its two-accumulator products, this takes
+//    10% less time at B = 2048 and 11% less at B = 256 than a build with
+//    the 4-byte cp.async ring and one accumulator (fused_turns.py against
+//    that build; a ring of 4-8 knots was slower still); PERF.md section 6.
+//  - The rollout's chains: forward, lane i holds row i of A_k in registers
+//    and x_k on every lane (13 shuffles of x_{k+1} end a knot), so a knot's
+//    chain is the shuffles and 13 FMAs in two accumulators; B_k u_k,
+//    gu_k = G u_k and the costate's bracket Q x_{k+1} + q_k (Q's row in
+//    registers, from the same shuffled values) are off it, the bracket
+//    kept on chip (H x 13 floats a warp) for the backward sweep.
+//    Backward, lam_k = bracket + carry reaches every lane by 13 shuffles;
+//    lane j reads column j of A_k and of B_k and forms the carry
+//    (A_k' lam_k)_j and rx_k's B_k' lam_k from those values; R u_k +
+//    G' zm_k is off the chain.  A_k and B_k are read from device memory in
+//    both sweeps: kept on chip from one sweep to the other (26 KB a
+//    scenario at H = 20) they would fit 8 scenarios an SM, two waves at
+//    B = 2048, each as long as one warp's chain alone (the rollout's time
+//    at B = 256), which is longer than the whole two-read kernel.
 //  - The factor's chain in registers: a lane holds a column of P (or of
 //    A) across the 13-wide products, half of the rows a lane; M's lower
 //    triangle is one entry a lane, its Gram in the plain version's order,
@@ -57,11 +79,12 @@
 //
 // What bounds them on the H100: each pass moves 70-120 MB at B = 2048,
 // H = 20 (20-35 us at 3.35 TB/s, which sets their bound: the operations
-// take less), but runs H dependent knots, each a chain of dependent
-// shuffles, shared-memory round trips and FMAs, so the latency of that
-// chain, and at one wave (15.5 warps an SM) the issue slots the SM's warps
-// share, set their time.  PERF.md has their times against the bound
-// (chip_smoke.py, fused_turns.py).
+// take less; the rollout reads A_k and B_k, 53 MB, in both sweeps, 123 MB
+// in all where its bound counts 69), but runs H dependent knots, each a
+// chain of dependent shuffles and FMAs, so the latency of that chain, and
+// at one wave (15.5 warps an SM) the issue slots the SM's warps share, set
+// their time.  PERF.md has their times against the bound (chip_smoke.py,
+// fused_turns.py).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 // -fPIC, without --use_fast_math.
@@ -75,127 +98,20 @@ constexpr int NX_MAX = 13;
 constexpr int NU_MAX = 12;
 constexpr int M_MAX = 32;
 constexpr int WARPS = 4;    // scenarios per block
-// dynamic shared memory of the rollout (x history), under the 48 KB a
-// block gets without an opt-in, beside the static arrays
+// the per-knot history the rollout (13 floats) and the vector pass (kff,
+// 12) keep on chip sets their horizon limit, H_MAX = 177 knots
 constexpr size_t DYN_MAX = 36 * 1024;
 
 struct Dims {
   int B, H, nx, nu, m;
 };
 
-// block-shared constants, loaded by every thread before the warps split
-struct Consts {
-  float G[M_MAX * NU_MAX], R[NU_MAX * NU_MAX], Q[NX_MAX * NX_MAX];
-};
-
-__device__ void load_consts(Consts& c, const float* G, const float* R,
-                            const float* Q, const Dims& d) {
-  if (G)
-    for (int i = threadIdx.x; i < d.m * d.nu; i += blockDim.x) c.G[i] = G[i];
-  if (R)
-    for (int i = threadIdx.x; i < d.nu * d.nu; i += blockDim.x) c.R[i] = R[i];
-  if (Q)
-    for (int i = threadIdx.x; i < d.nx * d.nx; i += blockDim.x) c.Q[i] = Q[i];
-  __syncthreads();
-}
-
-// copy n floats from device memory to shared memory, lanes over entries
-__device__ void copy(float* dst, const float* __restrict__ src, int n,
-                     int lane) {
-  for (int i = lane; i < n; i += 32) dst[i] = src[i];
-}
-
 // ---------------------------------------------------------------------------
-// rollout + adjoint + stationarity pieces
+// the three passes: compile-time widths, knots staged by cp.async
 // ---------------------------------------------------------------------------
 
-struct RolloutSmem {
-  float A[NX_MAX * NX_MAX], Bm[NX_MAX * NU_MAX];
-  float u[NU_MAX], zm[M_MAX], v[NX_MAX], lamk[NX_MAX];
-};
-
-__global__ void __launch_bounds__(WARPS * 32)
-    rollout_kernel(const float* G, const float* R, const float* Q,
-                   const float* __restrict__ A, const float* __restrict__ Bm,
-                   const float* __restrict__ q, const float* __restrict__ u,
-                   const float* __restrict__ zm, const float* __restrict__ x0,
-                   float* __restrict__ x, float* __restrict__ rx,
-                   float* __restrict__ gu, Dims d) {
-  __shared__ Consts c;
-  __shared__ RolloutSmem smem[WARPS];
-  extern __shared__ float xhist[];   // (WARPS, H, nx)
-  load_consts(c, G, R, Q, d);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int b = blockIdx.x * WARPS + warp;
-  if (b >= d.B) return;   // whole warps only: no block barrier below
-  const int H = d.H, nx = d.nx, nu = d.nu, m = d.m;
-  RolloutSmem& S = smem[warp];
-  float* X = xhist + (size_t)warp * H * nx;
-  const size_t bH = (size_t)b * H;
-
-  // forward: x_{k+1} = A_k x_k + B_k u_k
-  if (lane < nx) S.v[lane] = x0[(size_t)b * nx + lane];
-  for (int k = 0; k < H; ++k) {
-    __syncwarp();
-    copy(S.A, A + (bH + k) * nx * nx, nx * nx, lane);
-    copy(S.Bm, Bm + (bH + k) * nx * nu, nx * nu, lane);
-    copy(S.u, u + (bH + k) * nu, nu, lane);
-    __syncwarp();
-    float xn = 0.f;
-    if (lane < nx) {
-      for (int j = 0; j < nx; ++j) xn += S.A[lane * nx + j] * S.v[j];
-      for (int j = 0; j < nu; ++j) xn += S.Bm[lane * nu + j] * S.u[j];
-    }
-    __syncwarp();
-    if (lane < nx) {
-      S.v[lane] = xn;
-      X[k * nx + lane] = xn;
-      x[(bH + k) * nx + lane] = xn;
-    }
-  }
-
-  // backward: costates, rx and gu; S.v carries A_{k+1}' lam_{k+1}
-  __syncwarp();
-  if (lane < nx) S.v[lane] = 0.f;
-  for (int k = H - 1; k >= 0; --k) {
-    __syncwarp();
-    copy(S.A, A + (bH + k) * nx * nx, nx * nx, lane);
-    copy(S.Bm, Bm + (bH + k) * nx * nu, nx * nu, lane);
-    copy(S.u, u + (bH + k) * nu, nu, lane);
-    copy(S.zm, zm + (bH + k) * m, m, lane);
-    __syncwarp();
-    if (lane < nx) {
-      float lk = q[(bH + k) * nx + lane] + S.v[lane];
-      for (int j = 0; j < nx; ++j) lk += c.Q[lane * nx + j] * X[k * nx + j];
-      S.lamk[lane] = lk;
-    }
-    for (int r = lane; r < m; r += 32) {
-      float acc = 0.f;
-      for (int j = 0; j < nu; ++j) acc += c.G[r * nu + j] * S.u[j];
-      gu[(bH + k) * m + r] = acc;
-    }
-    __syncwarp();
-    if (lane < nu) {
-      float acc = 0.f;
-      for (int i = 0; i < nu; ++i) acc += c.R[lane * nu + i] * S.u[i];
-      for (int i = 0; i < nx; ++i) acc += S.Bm[i * nu + lane] * S.lamk[i];
-      for (int r = 0; r < m; ++r) acc += c.G[r * nu + lane] * S.zm[r];
-      rx[(bH + k) * nu + lane] = acc;
-    }
-    if (lane < nx) {
-      float ln = 0.f;
-      for (int l = 0; l < nx; ++l) ln += S.A[l * nx + lane] * S.lamk[l];
-      S.v[lane] = ln;   // S.v is read above only, before the last barrier
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// factor and vector passes: compile-time widths, knots staged by cp.async
-// ---------------------------------------------------------------------------
-
-constexpr int NX = NX_MAX;   // states and inputs of the factor and vector
-constexpr int NU = NU_MAX;   // kernels; smaller problems are padded as staged
+constexpr int NX = NX_MAX;   // states and inputs of the kernels; smaller
+constexpr int NU = NU_MAX;   // problems are padded as staged
 constexpr int RS = 16;       // row stride of a staged 13-wide row: 4 float4s
 constexpr int NL = NU * (NU + 1) / 2;
 constexpr unsigned FULL = 0xffffffffu;
@@ -297,6 +213,32 @@ __device__ __forceinline__ float dot_ss(const float* x, const float* y,
   }
   return acc;
 }
+// sum over t < N of x[t] y[t] in two accumulators, even and odd t, added at
+// the end: half the dependent chain of dot_ss (x, y as dot_ss's)
+template <int N>
+__device__ __forceinline__ float dot2_ss(const float* x, const float* y) {
+  float a0 = 0.f, a1 = 0.f;
+#pragma unroll
+  for (int t = 0; t < N; t += 4) {
+    const float4 v = ld4(x + t), u = ld4(y + t);
+    a0 = fmaf(v.x, u.x, a0);
+    a1 = fmaf(v.y, u.y, a1);
+    a0 = fmaf(v.z, u.z, a0);
+    a1 = fmaf(v.w, u.w, a1);
+  }
+  return a0 + a1;
+}
+// the same for x and y in registers
+template <int N>
+__device__ __forceinline__ float dot2_rr(const float* x, const float* y) {
+  float a0 = 0.f, a1 = 0.f;
+#pragma unroll
+  for (int t = 0; t < N; ++t) {
+    if (t % 2) a1 = fmaf(x[t], y[t], a1);
+    else a0 = fmaf(x[t], y[t], a0);
+  }
+  return a0 + a1;
+}
 // the same with x strided by XS in shared memory (a column)
 template <int N, int XS>
 __device__ __forceinline__ float dot_cs(const float* x, const float* y,
@@ -323,7 +265,7 @@ __device__ __forceinline__ void load_row(float* out, const float* x) {
   }
 }
 
-// block-shared constants of the factor and vector passes, padded: G with
+// block-shared constants of the passes, padded: G with
 // zero rows (m < MP) and zero columns, R with an identity block on the
 // padded inputs, Q with zeros
 template <int MP>
@@ -388,6 +330,206 @@ __device__ __forceinline__ void sweep(int H, bool fwd, float* ring, int slot,
     __syncwarp();
     body(knot(step), ring + (step & 1) * slot);
   }
+}
+
+// ---------------------------------------------------------------------------
+// rollout + adjoint + stationarity pieces
+// ---------------------------------------------------------------------------
+
+template <int MP>
+struct RolloutSlot {       // one knot's inputs, padded with zeros
+  float A[NX * NX + 3];    // A_k, rows of 13
+  float Bm[NX * NU];       // B_k, rows of 12
+  float u[16];             // u_k
+  float v[MP];             // q_k (forward) or zm_k (backward)
+};
+template <int MP>
+__host__ __device__ constexpr int rollout_slot() {
+  return (int)(sizeof(RolloutSlot<MP>) / 4);
+}
+template <int MP>
+__host__ __device__ int rollout_warp_floats(int H) {   // ring, history
+  return 2 * rollout_slot<MP>() + ((H * NX + 3) & ~3);
+}
+
+// One knot's inputs on their way from device memory, in registers: lane l
+// holds entries 32 t + l of A_k (169 floats at most) and B_k (156), entry
+// l of u_k and of q_k or zm_k; zeros past the problem's sizes.
+struct KnotRegs {
+  float a[(NX * NX + 31) / 32], b[(NX * NU + 31) / 32], u, v;
+};
+
+// Load knot k's inputs (coalesced, 128 bytes an instruction), to be
+// stored into a slot once the warp is done with the knot before.
+__device__ __forceinline__ void load_knot(KnotRegs& g, const float* A,
+                                          const float* Bm, const float* u,
+                                          const float* v, int nx, int nu,
+                                          int nv, int lane) {
+#pragma unroll
+  for (int t = 0; t < (NX * NX + 31) / 32; ++t) {
+    const int e = 32 * t + lane;
+    g.a[t] = e < nx * nx ? A[e] : 0.f;
+  }
+#pragma unroll
+  for (int t = 0; t < (NX * NU + 31) / 32; ++t) {
+    const int e = 32 * t + lane;
+    g.b[t] = e < nx * nu ? Bm[e] : 0.f;
+  }
+  g.u = lane < nu ? u[lane] : 0.f;
+  g.v = lane < nv ? v[lane] : 0.f;
+}
+
+// Store them in the slot's padded layout; entries past the problem's
+// sizes are never written (the zeros the ring starts with stay).
+template <int MP>
+__device__ __forceinline__ void store_knot(RolloutSlot<MP>& X,
+                                           const KnotRegs& g, int nx, int nu,
+                                           int lane) {
+  if (nx == NX && nu == NU) {   // the production widths: no division
+#pragma unroll
+    for (int t = 0; t < (NX * NX + 31) / 32; ++t) {
+      const int e = 32 * t + lane;
+      if (e < NX * NX) X.A[e] = g.a[t];
+    }
+#pragma unroll
+    for (int t = 0; t < (NX * NU + 31) / 32; ++t) {
+      const int e = 32 * t + lane;
+      if (e < NX * NU) X.Bm[e] = g.b[t];
+    }
+  } else {
+#pragma unroll
+    for (int t = 0; t < (NX * NX + 31) / 32; ++t) {
+      const int e = 32 * t + lane;
+      if (e < nx * nx) X.A[(e / nx) * NX + e % nx] = g.a[t];
+    }
+#pragma unroll
+    for (int t = 0; t < (NX * NU + 31) / 32; ++t) {
+      const int e = 32 * t + lane;
+      if (e < nx * nu) X.Bm[(e / nu) * NU + e % nu] = g.b[t];
+    }
+  }
+  if (lane < 16) X.u[lane] = g.u;
+  if (lane < MP) X.v[lane] = g.v;
+}
+
+// One sweep of the rollout over the horizon, forward or backward: knot
+// k + 2's inputs (k - 2's) are loaded into registers as the warp starts on
+// knot k, and knot k + 1's, loaded a knot earlier, are stored into the
+// other slot of the ring when it is done with knot k: two knots' bodies
+// cover a load's latency.  The register sets alternate, so the loop is
+// unrolled by two.
+template <int MP, class Load, class Body>
+__device__ __forceinline__ void sweep_regs(int H, bool fwd, float* ring,
+                                           int nx, int nu, int lane,
+                                           Load load, Body body) {
+  constexpr int SLOT = rollout_slot<MP>();
+  auto knot = [&](int step) { return fwd ? step : H - 1 - step; };
+  KnotRegs g[2];
+  load(g[0], knot(0));
+  if (H > 1) load(g[1], knot(1));
+  __syncwarp();   // the ring's zeros, and the last sweep's reads, before
+  store_knot(*reinterpret_cast<RolloutSlot<MP>*>(ring), g[0], nx, nu, lane);
+  for (int step = 0; step < H; step += 2) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {   // g[h] held this knot, slot h has it
+      const int s = step + h;
+      if (s < H) {
+        if (s + 2 < H) load(g[h], knot(s + 2));
+        __syncwarp();
+        body(knot(s), ring + h * SLOT);
+        if (s + 1 < H)
+          store_knot(*reinterpret_cast<RolloutSlot<MP>*>(ring +
+                                                         (1 - h) * SLOT),
+                     g[1 - h], nx, nu, lane);
+      }
+    }
+  }
+}
+
+template <int MP>
+__global__ void __launch_bounds__(WARPS * 32, 4)
+    rollout_kernel(const float* G, const float* R, const float* Q,
+                   const float* __restrict__ A, const float* __restrict__ Bm,
+                   const float* __restrict__ q, const float* __restrict__ u,
+                   const float* __restrict__ zm, const float* __restrict__ x0,
+                   float* __restrict__ x, float* __restrict__ rx,
+                   float* __restrict__ gu, Dims d) {
+  __shared__ PassConsts<MP> c;
+  extern __shared__ __align__(16) float dsm[];
+  load_pass_consts(c, G, R, Q, d);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int b = blockIdx.x * WARPS + warp;
+  if (b >= d.B) return;   // whole warps only: no block barrier below
+  const int H = d.H, nx = d.nx, nu = d.nu, m = d.m;
+  constexpr int SLOT = rollout_slot<MP>();
+  float* ring = dsm + (size_t)warp * rollout_warp_floats<MP>(H);
+  // (H, 13): Q x_{k+1} + q_k, entry i written and read by lane i only
+  float* hist = ring + 2 * SLOT;
+  const size_t bH = (size_t)b * H;
+  const int r = lane < NX ? lane : 0;   // lane's row of the 13-wide products
+  for (int e = lane; e < 2 * SLOT; e += 32) ring[e] = 0.f;
+  auto load = [&](KnotRegs& g, int k, const float* v, int nv) {
+    const size_t kk = bH + k;
+    load_knot(g, A + kk * nx * nx, Bm + kk * nx * nu, u + kk * nu,
+              v + kk * nv, nx, nu, nv, lane);
+  };
+
+  // forward: x_{k+1} = A_k x_k + B_k u_k, lane i forming entry i with row
+  // i of A_k in registers and x_k on every lane; B_k u_k, gu_k = G u_k and
+  // the costate's bracket Q x_{k+1} + q_k are off the chain
+  float qrow[NX], xs[NX];
+#pragma unroll
+  for (int j = 0; j < NX; ++j) qrow[j] = c.Q[r * NX + j];
+  {
+    const float v = lane < nx ? x0[(size_t)b * nx + lane] : 0.f;
+#pragma unroll
+    for (int j = 0; j < NX; ++j) xs[j] = __shfl_sync(FULL, v, j);
+  }
+  sweep_regs<MP>(H, true, ring, nx, nu, lane, [&](KnotRegs& g, int k) {
+    load(g, k, q, nx);
+  }, [&](int k, const float* slot) {
+    const RolloutSlot<MP>& X = *reinterpret_cast<const RolloutSlot<MP>*>(slot);
+    const size_t kk = bH + k;
+    // every lane forms a row of G u (lanes >= MP row 0), so that no branch
+    // splits the body; the store keeps lanes < m
+    const float gv = dot2_ss<NU>(c.G + (lane < MP ? lane : 0) * NU, X.u);
+    if (lane < m) gu[kk * m + lane] = gv;
+    float ar[NX];
+#pragma unroll
+    for (int j = 0; j < NX; ++j) ar[j] = X.A[r * NX + j];
+    const float xn = dot2_rr<NX>(ar, xs) + dot2_ss<NU>(X.Bm + r * NU, X.u);
+    if (lane < nx) x[kk * nx + lane] = xn;
+#pragma unroll
+    for (int j = 0; j < NX; ++j) xs[j] = __shfl_sync(FULL, xn, j);
+    if (lane < NX) hist[k * NX + lane] = X.v[r] + dot2_rr<NX>(qrow, xs);
+  });
+
+  // backward: lam_k = (Q x_{k+1} + q_k) + A_{k+1}' lam_{k+1}, broadcast
+  // by shuffles; lane j carries (A_k' lam_k)_j with column j of A_k in
+  // registers and forms rx_k = R u_k + G' zm_k + B_k' lam_k from the same
+  // broadcast values, R u_k + G' zm_k off the chain
+  float carry = 0.f;
+  sweep_regs<MP>(H, false, ring, nx, nu, lane, [&](KnotRegs& g, int k) {
+    load(g, k, zm, m);
+  }, [&](int k, const float* slot) {
+    const RolloutSlot<MP>& X = *reinterpret_cast<const RolloutSlot<MP>*>(slot);
+    const size_t kk = bH + k;
+    const int j = lane < NU ? lane : 0;
+    const float ru = dot2_ss<NU>(c.R + j * NU, X.u);
+    const float gz = dot2_ss<MP>(c.GT + j * MP, X.v);
+    float ac[NX], bc[NX];
+#pragma unroll
+    for (int l = 0; l < NX; ++l) {
+      ac[l] = X.A[l * NX + r];
+      bc[l] = X.Bm[l * NU + j];
+    }
+    const float lam = hist[k * NX + r] + carry;
+    float ls[NX];
+#pragma unroll
+    for (int l = 0; l < NX; ++l) ls[l] = __shfl_sync(FULL, lam, l);
+    carry = dot2_rr<NX>(ac, ls);
+    if (lane < nu) rx[kk * nu + lane] = (ru + dot2_rr<NX>(bc, ls)) + gz;
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -763,8 +905,26 @@ bool bad_dims(const Dims& d) {
 
 int blocks(const Dims& d) { return (d.B + WARPS - 1) / WARPS; }
 
-// the largest H of the rollout's x history and the vector pass's kff
+// the largest H of the rollout's history and the vector pass's kff
 constexpr int H_MAX = (int)(DYN_MAX / (WARPS * NX_MAX * sizeof(float)));
+
+template <int MP>
+int launch_rollout(const float* G, const float* R, const float* Q,
+                   const float* A, const float* Bm, const float* q,
+                   const float* u, const float* zm, const float* x0, float* x,
+                   float* rx, float* gu, const Dims& d, cudaStream_t stream) {
+  const size_t dyn = (size_t)WARPS * rollout_warp_floats<MP>(d.H) *
+                     sizeof(float);
+  if (dyn > 32 * 1024) {   // a long horizon's history: above 48 KB
+    const int err = (int)cudaFuncSetAttribute(
+        rollout_kernel<MP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)dyn);
+    if (err != 0) return err;
+  }
+  rollout_kernel<MP><<<blocks(d), WARPS * 32, dyn, stream>>>(
+      G, R, Q, A, Bm, q, u, zm, x0, x, rx, gu, d);
+  return (int)cudaGetLastError();
+}
 
 template <int MP>
 int launch_factor(const float* G, const float* R, const float* Q,
@@ -813,11 +973,12 @@ int fused_rollout_launch(const float* G, const float* R, const float* Q,
                          float* x, float* rx, float* gu, int B, int H, int nx,
                          int nu, int m, void* stream) {
   const Dims d{B, H, nx, nu, m};
-  const size_t dyn = (size_t)WARPS * H * nx * sizeof(float);
-  if (bad_dims(d) || dyn > DYN_MAX) return (int)cudaErrorInvalidValue;
-  rollout_kernel<<<blocks(d), WARPS * 32, dyn, (cudaStream_t)stream>>>(
-      G, R, Q, A, Bm, q, u, zm, x0, x, rx, gu, d);
-  return (int)cudaGetLastError();
+  if (bad_dims(d) || H > H_MAX) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return m <= 24 ? launch_rollout<24>(G, R, Q, A, Bm, q, u, zm, x0, x, rx,
+                                      gu, d, s)
+                 : launch_rollout<32>(G, R, Q, A, Bm, q, u, zm, x0, x, rx,
+                                      gu, d, s);
 }
 
 int fused_factor_launch(const float* G, const float* R, const float* Q,

@@ -16,16 +16,18 @@
 //   (k >= COLS_MIN_K), spd_sub_wide_kernel <- ::_sub_kernel (via
 //       chol_sub_blocked): L, dinv, rhs (B, n, k) -> X (B, n, k) with
 //       L L' X = rhs: forward, then back substitution, both scaled by dinv.
-//   spd_solve_kernel <- ::_chol_solve_kernel (via chol_solve_blocked):
-//       M (B, n, n) SPD, rhs (B, n, k) -> X with M X = rhs, the factor and
-//       the substitution in one launch; all of X NaN where M is not
-//       positive definite.
+//   spd_solve_kernel<N, COLS, W>, spd_solve_wide_kernel <- ::_chol_solve_kernel
+//       (via chol_solve_blocked): M (B, n, n) SPD, rhs (B, n, k) -> X with
+//       M X = rhs, the factor and the substitution in one launch; all of X
+//       NaN where M is not positive definite.
 // On the closed loop's path the first two factor the WBC QP's H = P + G' W G
 // and its Schur complement S_eq (n = 30) twice per IPM iteration and the
 // physics substep's mass matrix (n = 18), and substitute one right-hand
 // side (k = 1: the Newton vectors, the mass-matrix solve) or thirty
 // (k = 30: H^-1 A'): 36 factors and 206 substitutions a tick.  The third
-// serves the scan IPM under SolverConfig.use_pallas (n = 12, k = 13 or 1).
+// serves the scan IPM under SolverConfig.use_pallas (n = 12, B = 256 on the
+// smoke run's path: k = 13 for the gains, k = 1 for the feed-forward, 540
+// launches a plan).
 //
 // What bounds them on the H100: the dependent chain, not bytes.  A batch
 // of 64 30 x 30 factors moves 0.36 MB and does 0.58 Mflop, 0.11 us at the
@@ -43,7 +45,9 @@
 // n <= 18 runs at N = 18 and 19 <= n <= 30 at N = 30, the matrix padded
 // with an identity block as it is staged: exact, since the first n columns
 // of L depend only on the leading n x n block; 31 <= n <= 64 takes the wide
-// bodies with runtime n).  One warp a matrix, one matrix a block.
+// bodies with runtime n; the factor-and-solve adds N = 12, the scan's M_k,
+// for n <= 12).  One warp a matrix (at N = 12 in the factor-and-solve, two),
+// one block a warp.
 //   * staging: a matrix is one contiguous block of N*N floats (3,600 bytes
 //     at n = 30, 1,296 at n = 18, both multiples of 16), copied into shared
 //     memory with 16-byte cp.async while the warp loads its other operands,
@@ -55,11 +59,13 @@
 //     substitution 0.00495 against 0.00457 (H100 SXM at 700 W,
 //     spd_turns.py in turns; PERF.md section 6); at B = 1024 the two are
 //     within 3%.
-//   * factor, right-looking, lane r = row r, the row in registers (its
-//     lower triangle; zeros above).  Column j: the pivot comes from lane j
-//     by one shuffle, then rsqrt; every lane scales its own a[j]; the
-//     column's L_cj are broadcast by shuffles, independent of each other,
-//     and every lane updates its remaining entries with them.  The next
+//   * factor (factor_rows, shared by spd_factor_kernel and
+//     spd_solve_kernel), right-looking, lane r = row r, the row in
+//     registers (its lower triangle; zeros above).  Column j: the pivot
+//     comes from lane j by one shuffle, then rsqrt; every lane scales its
+//     own a[j]; the column's L_cj are broadcast by shuffles, independent
+//     of each other, and every lane updates its remaining entries with
+//     them.  The next
 //     pivot, fma(-L_(j+1)j, L_(j+1)j, a[j+1]) on lane j+1, is shuffled out
 //     before the rest of the update, so a column's chain is shuffle, rsqrt,
 //     multiply, FMA: no shared memory and no __syncwarp in it.  Each entry
@@ -77,9 +83,23 @@
 //     The reads are volatile: without that the compiler reuses the forward
 //     pass's loads in the back substitution, keeps ~N^2 / 2 values live
 //     and spills.
-// spd_solve_kernel and the wide bodies keep the first design's device
-// functions (factor_in_place, sub_cols, sub_rows: one warp a matrix in
-// shared memory with an odd row stride, runtime n).
+//   * factor-and-solve: the factor above, then the substitution from its
+//     registers, L never written back: for k < COLS_MIN_K lane r holds row
+//     r and column r of L (the column taken from the factor's column
+//     broadcasts as they pass lane r) and each step is one shuffle and one
+//     FMA; for k >= COLS_MIN_K lane c holds right-hand side c and each L_ti
+//     reaches it by a shuffle from lane t's register i, independent of X.
+//     M is staged as the factor stages H; the right-hand sides are loaded
+//     straight into registers during the copy (each is read once, by one
+//     lane).  At N = 12 a warp takes two matrices, 16 lanes each (shuffles
+//     of width 16): half the warps for the same chains, the time 3-4%
+//     shorter at B = 256 and 23-24% at B = 2048 than at one matrix a warp
+//     (spd_turns.py against such a copy; PERF.md section 6).  The first design
+//     (runtime n, left-looking in shared memory) took 0.0104 ms at
+//     B = 256, n = 12, k = 13; this one 0.0027.
+// The wide bodies keep the first design's device functions
+// (factor_in_place, sub_cols, sub_rows: one warp a matrix in shared memory
+// with an odd row stride, runtime n).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 // -fPIC, without --use_fast_math.
@@ -91,7 +111,8 @@
 namespace {
 
 constexpr int N_MAX = 64;        // two rows a lane in the wide row paths
-constexpr int N_SMALL = 18;      // compile-time widths: the mass matrix,
+constexpr int N_SOLVE = 12;      // compile-time widths: the scan's M_k,
+constexpr int N_SMALL = 18;      // the mass matrix,
 constexpr int N_LARGE = 30;      // and the WBC's H and S_eq
 constexpr int COLS_MIN_K = 8;    // sub: lanes over columns from this k on
 constexpr int MAX_WARPS = 4;     // wide bodies: matrices per block
@@ -126,14 +147,15 @@ __device__ __forceinline__ void cp_wait_all() {
 // Start copying the row-major n x n matrix g into sm (row stride N, the
 // identity beyond n).  vec: n == N and g 16-byte aligned, so the matrix is
 // N*N/4 contiguous 16-byte chunks, copied with cp.async (cp_wait_all and a
-// __syncwarp complete it); otherwise the lanes copy it row by row.
-template <int N>
+// __syncwarp complete it); otherwise the lanes copy it row by row.  W: the
+// lanes that share the copy (lane < W).
+template <int N, int W = 32>
 __device__ __forceinline__ void stage(float* sm, const float* __restrict__ g,
                                       int n, bool vec, int lane) {
-  static_assert(N <= 32 && (N * N) % 4 == 0,
+  static_assert(N <= W && (N * N) % 4 == 0,
                 "one row a lane; the matrix whole 16-byte chunks");
   if (vec) {
-    for (int q = lane; q < N * N / 4; q += 32) cp16(sm + 4 * q, g + 4 * q);
+    for (int q = lane; q < N * N / 4; q += W) cp16(sm + 4 * q, g + 4 * q);
     cp_commit();
   } else if (lane < N) {
     for (int i = 0; i < N; ++i)
@@ -158,6 +180,51 @@ __device__ __forceinline__ void unstage(float* __restrict__ g, const float* sm,
 
 // ---- compile-time widths: rows in registers ---------------------------------
 
+// Factor the N x N SPD matrix whose lower triangle lane r holds, row r, in
+// a[] (zeros above the diagonal; lanes >= N all zeros), right-looking.  On
+// return a[c] = L_rc for c <= r (the entries above the diagonal hold what
+// the masked update left there), dv = 1 / L_rr on lane r < N, and the
+// result says whether a pivot was not positive or NaN (uniform across the
+// matrix's lanes).  COL: also gather lcol[i] = L_ir for i > r (zeros
+// elsewhere) from the column broadcasts, so that lane r holds column r of L
+// as well.  W: the lanes of the matrix (32, or 16: two matrices a warp,
+// `lane` the lane within its half).
+template <int N, bool COL, int W = 32>
+__device__ __forceinline__ bool factor_rows(float (&a)[N], float (&lcol)[N],
+                                            float& dv, int lane) {
+  float s = __shfl_sync(FULL, a[0], 0, W);   // column 0's pivot
+  bool bad = false;                        // uniform: s is broadcast
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const float d = rsqrtf(s);
+    bad |= !(s > 0.0f);
+    if (lane == j) dv = d;
+    const float l = a[j] * d;              // lane > j: L_rj; lane j: s d
+    a[j] = l;
+    const float lu = lane > j ? l : 0.0f;  // the rows below j update
+    if (j + 1 < N)   // next pivot, ahead of the rest (lane j + 1's lu is l)
+      s = __shfl_sync(FULL, fmaf(-l, l, a[j + 1]), j + 1, W);
+#pragma unroll
+    for (int c = j + 1; c < N; ++c) {
+      const float lc = __shfl_sync(FULL, lu, c, W);   // L_cj
+      a[c] = fmaf(-lu, lc, a[c]);
+      if (COL && lane == j) lcol[c] = lc;
+    }
+  }
+  return bad;
+}
+
+// lane r < N's row of the N x N matrix staged in sm (row stride N): its
+// lower triangle, zeros above; lanes >= N zeros
+template <int N>
+__device__ __forceinline__ void load_rows(float (&a)[N], const float* sm,
+                                          int lane) {
+  const int r = lane < N ? lane : N - 1;   // an address inside sm
+#pragma unroll
+  for (int c = 0; c < N; ++c)
+    a[c] = (c <= lane && lane < N) ? sm[r * N + c] : 0.0f;
+}
+
 template <int N>
 __global__ void __launch_bounds__(32)
     spd_factor_kernel(const float* __restrict__ H, float* __restrict__ L,
@@ -169,30 +236,10 @@ __global__ void __launch_bounds__(32)
   cp_wait_all();
   __syncwarp();
 
-  // lane r < N holds row r's lower triangle, zeros above; lanes >= N zeros
-  const int r = lane < N ? lane : N - 1;   // an address inside sm
-  float a[N];
-#pragma unroll
-  for (int c = 0; c < N; ++c)
-    a[c] = (c <= lane && lane < N) ? sm[r * N + c] : 0.0f;
-
-  float s = __shfl_sync(FULL, a[0], 0);    // column 0's pivot
+  float a[N], no_col[N];                   // no column wanted here
+  load_rows<N>(a, sm, lane);
   float dv = 0.0f;                         // 1 / L_rr on lane r
-  bool bad = false;                        // uniform: s is broadcast
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    const float d = rsqrtf(s);
-    bad |= !(s > 0.0f);
-    if (lane == j) dv = d;
-    const float l = a[j] * d;              // lane > j: L_rj; lane j: s d
-    a[j] = l;
-    const float lu = lane > j ? l : 0.0f;  // the rows below j update
-    if (j + 1 < N)   // next pivot, ahead of the rest (lane j + 1's lu is l)
-      s = __shfl_sync(FULL, fmaf(-l, l, a[j + 1]), j + 1);
-#pragma unroll
-    for (int c = j + 1; c < N; ++c)
-      a[c] = fmaf(-lu, __shfl_sync(FULL, lu, c), a[c]);
-  }
+  const bool bad = factor_rows<N, false>(a, no_col, dv, lane);
 
   const float nan = __int_as_float(0x7fc00000);
   __syncwarp();                            // every lane has read sm
@@ -295,6 +342,119 @@ __global__ void __launch_bounds__(32)
       for (int i = 0; i < N; ++i)
         if (i < n) xb[i * k + c] = x[i];
     }
+  }
+}
+
+// a value the compiler cannot see through: what is computed from it is
+// computed after this point (each substitution step's shuffles are issued
+// in their step, not hoisted all together, and the back substitution's are
+// not merged with the forward pass's: either keeps ~N^2 / 2 values live)
+__device__ __forceinline__ int opaque(int v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+
+// M X = rhs in one pass, compile-time width N >= n (the identity beyond n),
+// W lanes a matrix (32, or 16: two matrices a warp): the factor as
+// spd_factor_kernel's, then the substitution from the factor's registers,
+// L never written back.
+//   COLS false (k < COLS_MIN_K): lane r holds row r and column r of L (the
+//     column gathered during the factor), as spd_sub_rows_kernel; each step
+//     is one shuffle and one FMA, the right-hand sides one after another.
+//   COLS true: lane c holds right-hand side c (W at a time); each L_ti
+//     comes from lane t's register i by a shuffle, independent of X.
+// A pivot that is not positive, or NaN, makes all of the matrix's X NaN
+// (the substitution still runs: the warp's shuffles take every lane).
+template <int N, bool COLS, int W>
+__global__ void __launch_bounds__(32)
+    spd_solve_kernel(const float* __restrict__ M,
+                     const float* __restrict__ rhs, float* __restrict__ X,
+                     int B, int n, int k, bool vec) {
+  static_assert(W == 32 || (W == 16 && N <= 16), "a row a lane");
+  constexpr int PER = 32 / W;              // matrices a warp
+  __shared__ __align__(16) float sm[PER][N * N];
+  const int lane = threadIdx.x % W, seg = threadIdx.x / W;
+  const size_t bw = (size_t)blockIdx.x * PER + seg;
+  const bool live = bw < (size_t)B;        // a last half past B computes
+  const size_t b = live ? bw : 0;          // matrix 0 and writes nothing
+  const float* rb = rhs + b * n * k;
+  float* xb = X + b * n * k;
+  stage<N, W>(sm[seg], M + b * n * n, n, vec, lane);
+  // the first right-hand side(s) during the copy
+  float x[COLS ? N : 1];
+  if (COLS) {
+    const bool on = lane < k;
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = (on && i < n) ? rb[i * k + lane] : 0.0f;
+  } else {
+    x[0] = lane < n ? rb[lane * k] : 0.0f;
+  }
+  cp_wait_all();
+  __syncwarp();
+
+  float a[N], lcol[N];
+  load_rows<N>(a, sm[seg], lane);
+#pragma unroll
+  for (int i = 0; i < N; ++i) lcol[i] = 0.0f;
+  float dv = 1.0f;                         // 1 / L_rr on lane r < N
+  const bool bad = factor_rows<N, !COLS, W>(a, lcol, dv, lane);
+  const float nan = __int_as_float(0x7fc00000);
+
+  if (!COLS) {
+    float lrow[N];                         // L_ri for i < r, zeros after
+#pragma unroll
+    for (int i = 0; i < N; ++i) lrow[i] = i < lane ? a[i] : 0.0f;
+    float v = x[0];
+    for (int c = 0;;) {
+      // L y = b: y_i = v_i dinv_i on lane i, broadcast, the rows below
+      // subtract L_ri y_i
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        v = fmaf(-lrow[i], __shfl_sync(FULL, v * dv, i, W), v);
+      // L' x = y, from the last row up
+      float w = v * dv;
+#pragma unroll
+      for (int i = N - 1; i >= 0; --i)
+        w = fmaf(-lcol[i], __shfl_sync(FULL, w * dv, i, W), w);
+      if (live && lane < n) xb[lane * k + c] = bad ? nan : w * dv;
+      if (++c == k) break;
+      v = lane < n ? rb[lane * k + c] : 0.0f;
+    }
+    return;
+  }
+
+  float di[N];                             // 1 / L_ii, on every lane
+#pragma unroll
+  for (int i = 0; i < N; ++i) di[i] = __shfl_sync(FULL, dv, i, W);
+  for (int c0 = 0;;) {
+    const int c = c0 + lane;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {          // L y = b, right-looking
+      x[i] *= di[i];
+      const float ai = __int_as_float(opaque(__float_as_int(a[i])));
+#pragma unroll
+      for (int t = i + 1; t < N; ++t)      // L_ti
+        x[t] = fmaf(-__shfl_sync(FULL, ai, t, W), x[i], x[t]);
+    }
+#pragma unroll
+    for (int i = N - 1; i >= 0; --i) {     // L' x = y
+      x[i] *= di[i];
+      const int src = opaque(i);
+#pragma unroll
+      for (int t = 0; t < i; ++t)          // L_it
+        x[t] = fmaf(-__shfl_sync(FULL, a[t], src, W), x[i], x[t]);
+    }
+    if (live && c < k) {
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        if (i < n) xb[i * k + c] = bad ? nan : x[i];
+    }
+    c0 += W;
+    if (c0 >= k) break;
+    const bool on = c0 + lane < k;
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      x[i] = (on && i < n) ? rb[i * k + c0 + lane] : 0.0f;
   }
 }
 
@@ -461,10 +621,10 @@ __global__ void spd_sub_wide_kernel(const float* __restrict__ L,
   else sub_rows(l, dv, n, ld, rb, xb, k, lane);
 }
 
-__global__ void spd_solve_kernel(const float* __restrict__ M,
-                                 const float* __restrict__ rhs,
-                                 float* __restrict__ X, int B, int n, int k,
-                                 int warps) {
+__global__ void spd_solve_wide_kernel(const float* __restrict__ M,
+                                      const float* __restrict__ rhs,
+                                      float* __restrict__ X, int B, int n,
+                                      int k, int warps) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b = blockIdx.x * warps + warp;
@@ -507,6 +667,19 @@ void sub_launch(const float* L, const float* dinv, const float* rhs, float* X,
     spd_sub_rows_kernel<N><<<B, 32, 0, st>>>(L, dinv, rhs, X, n, k, vec);
   else
     spd_sub_cols_kernel<N><<<B, 32, 0, st>>>(L, dinv, rhs, X, n, k, vec);
+}
+
+template <int N, int W = 32>
+void solve_launch(const float* M, const float* rhs, float* X, int B, int n,
+                  int k, cudaStream_t st) {
+  const bool vec = n == N && aligned16(M);
+  const int grid = (B + 32 / W - 1) / (32 / W);
+  if (k < COLS_MIN_K)
+    spd_solve_kernel<N, false, W><<<grid, 32, 0, st>>>(M, rhs, X, B, n, k,
+                                                       vec);
+  else
+    spd_solve_kernel<N, true, W><<<grid, 32, 0, st>>>(M, rhs, X, B, n, k,
+                                                      vec);
 }
 
 }  // namespace
@@ -556,11 +729,20 @@ int spd_sub_launch(const float* L, const float* dinv, const float* rhs,
 int spd_solve_launch(const float* M, const float* rhs, float* X, int B, int n,
                      int k, void* stream) {
   if (B < 1 || n < 1 || n > N_MAX || k < 1) return (int)cudaErrorInvalidValue;
-  const size_t per = solve_smem(n);
-  const int warps = warps_for(per);
-  const int grid = (B + warps - 1) / warps;
-  spd_solve_kernel<<<grid, 32 * warps, warps * per, (cudaStream_t)stream>>>(
-      M, rhs, X, B, n, k, warps);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n <= N_SOLVE) {   // two matrices a warp: a row a lane fits in 16
+    solve_launch<N_SOLVE, 16>(M, rhs, X, B, n, k, st);
+  } else if (n <= N_SMALL) {
+    solve_launch<N_SMALL>(M, rhs, X, B, n, k, st);
+  } else if (n <= N_LARGE) {
+    solve_launch<N_LARGE>(M, rhs, X, B, n, k, st);
+  } else {
+    const size_t per = solve_smem(n);
+    const int warps = warps_for(per);
+    const int grid = (B + warps - 1) / warps;
+    spd_solve_wide_kernel<<<grid, 32 * warps, warps * per, st>>>(
+        M, rhs, X, B, n, k, warps);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -47,8 +47,10 @@ Phases; each raises on failure, so any failure exits non-zero:
      others in phase 2 (timed, ptxas lines);
  12. the new kernels vs their plain versions on the card: the three fused
      passes (ops/cuda_riccati.plain_*) at B in {4, 130, 2048}, H=20,
-     13/12/24, masks all on, mixed and all off; chol_solve at n=12,
-     k in {1, 13}, B in {1, 64, 2048} and a non-SPD lane;
+     13/12/24, masks all on, mixed and all off, and the rollout at 6/4/8
+     and 13/12/32 (B=130); chol_solve at n in {1, 5, 11, 12, 13, 18, 30,
+     31, 64}, k in {1, 7, 8, 13, 30}, B in {1, 255, 256, 257, 2049} and a
+     non-SPD lane;
  13. the paths: planner.plan with backend "riccati_fused" on bench.py's
      problem (B=2048, H=20), cold and warm, against the plain scan, with
      the three kernels' launch counts, and its base_box reroute to the
@@ -58,7 +60,8 @@ Phases; each raises on failure, so any failure exits non-zero:
  14. timing: fused plan solves/s beside the resident kernel's, launches a
      fused plan, each fused pass and chol_solve (device time and CUDA
      events) beside its plain version and, for chol_solve, torch.linalg.
-     solve; the condensed plan.
+     solve, at n=12, k in {13, 1}, B=256 (the use_pallas path's shape, the
+     one recorded) and B=2048; the condensed plan.
 Every kernel's record carries its least possible time on this card
 (`bound_ms`: the larger of its bytes over 3.35 TB/s and its float32
 operations over 67 TFLOP/s, counted from this run's inputs and, for the
@@ -737,20 +740,41 @@ def fused_slice(dev, card, build_s, golden, compare_solve, x0, refs, x1,
         return torch.as_tensor(A @ A.transpose(0, 2, 1) + n * np.eye(n),
                                dtype=f32, device=dev)
 
-    for B in (1, 64, 2048):
-        M = spd(B, 12)
-        for k in (1, 13):
-            r = torch.as_tensor(rng.normal(size=(B, 12, k)), dtype=f32,
-                                device=dev)
-            X = cuda_chol.chol_solve(M, r)
-            Xp = chol.plain_chol_solve(M, r)
-            torch.cuda.synchronize()
-            e = rel(X, Xp)
-            err["chol_solve"] = max(err["chol_solve"],
-                                    float((X - Xp).abs().max()))
-            print(f"[chol_solve] n=12 k={k} B={B}: rel err {e:.2e} (gate "
-                  f"1e-5)", flush=True)
-            check(e <= 1e-5, f"chol_solve B={B} k={k} within 1e-5")
+    # the rollout's padded widths and its 32-row instance
+    for nx, nu, m in ((6, 4, 8), (13, 12, 32)):
+        roll, _ = pass_args(pass_data(130, 0.6, nx=nx, nu=nu, m=m))
+        out, ref = cr.fused_rollout(*roll), cr.plain_rollout(*roll)
+        torch.cuda.synchronize()
+        e = max(rel(a, b) for a, b in zip(out, ref))
+        err["rollout"] = max(err["rollout"], max(
+            float((a - b).abs().max()) for a, b in zip(out, ref)))
+        print(f"[fused] rollout B=130 H=20 {nx}/{nu}/{m}: rel err {e:.2e} "
+              f"(gate 1e-5)", flush=True)
+        check(e <= 1e-5, f"rollout {nx}/{nu}/{m} within 1e-5 of its plain "
+              f"version")
+
+    # chol_solve on each side of its compile-time widths (12, 18, 30; the
+    # wide body past 30), both substitution layouts (k < 8, k >= 8, past
+    # 32 columns) and batches around the use_pallas scan's 256
+    ks, Bs = (1, 7, 8, 13, 30), (1, 255, 256, 257, 2049)
+    for n in (1, 5, 11, 12, 13, 18, 30, 31, 64):
+        worst = 0.0
+        for B in Bs:
+            M = spd(B, n)
+            for k in ks:
+                r = torch.as_tensor(rng.normal(size=(B, n, k)), dtype=f32,
+                                    device=dev)
+                X = cuda_chol.chol_solve(M, r)
+                Xp = chol.plain_chol_solve(M, r)
+                torch.cuda.synchronize()
+                e = rel(X, Xp)
+                worst = max(worst, e)
+                err["chol_solve"] = max(err["chol_solve"],
+                                        float((X - Xp).abs().max()))
+                check(e <= 1e-5, f"chol_solve n={n} B={B} k={k} within "
+                      f"1e-5 ({e:.2e})")
+        print(f"[chol_solve] n={n}, k in {ks}, B in {Bs}: worst rel err "
+              f"{worst:.2e} (gate 1e-5)", flush=True)
     M = spd(5, 12)
     M[2, 4, 4] = -3.0
     X = cuda_chol.chol_solve(M, torch.ones(5, 12, 13, device=dev))
@@ -914,26 +938,31 @@ def fused_slice(dev, card, build_s, golden, compare_solve, x0, refs, x1,
               f"{flops / 1e9:.3f} GFLOP), kernel at "
               f"{100 * b[0] / w.ms:.2f}% of bound", flush=True)
 
-    Bc, n = 2048, 12
-    M = spd(Bc, n)
-    for k in (13, 1):
-        r = torch.as_tensor(rng.normal(size=(Bc, n, k)), dtype=f32,
-                            device=dev)
-        (ms, w), (pms, pw), (lms, lw) = (
-            call_ms(lambda: cuda_chol.chol_solve(M, r)),
-            call_ms(lambda: chol.plain_chol_solve(M, r)),
-            call_ms(lambda: torch.linalg.solve(M, r)))
-        # M's lower triangle is read (as the factor's), rhs read, X written
-        b = bound(4 * Bc * (n * (n + 1) // 2 + 2 * n * k),
-                  Bc * (n ** 3 / 3 + 2 * n * n * k))
-        if k == 13:
-            rec["chol_solve"] = (w.ms, pw.ms, b, lw.ms)
-        print(f"[time] {card}: chol_solve B={Bc} n={n} k={k}: device time "
-              f"{w.ms:.4f} ms (window total {w.total_ms:.4f} ms, "
-              f"{w.share:.2%} of launches recorded), plain {pw.ms:.4f} ms, "
-              f"torch.linalg.solve {lw.ms:.4f} ms; CUDA events {ms:.4f} / "
-              f"{pms:.4f} / {lms:.4f} ms; bound {b[0]:.6f} ms ({b[1]})",
-              flush=True)
+    # chol_solve at the use_pallas scan's shape (B=256: k=13, the gains,
+    # and k=1, the feed-forward, one and two launches a knot of an
+    # iteration) and at B=2048; the record takes B=256, k=13
+    n = 12
+    for Bc in (256, 2048):
+        M = spd(Bc, n)
+        for k in (13, 1):
+            r = torch.as_tensor(rng.normal(size=(Bc, n, k)), dtype=f32,
+                                device=dev)
+            (ms, w), (pms, pw), (lms, lw) = (
+                call_ms(lambda: cuda_chol.chol_solve(M, r)),
+                call_ms(lambda: chol.plain_chol_solve(M, r)),
+                call_ms(lambda: torch.linalg.solve(M, r)))
+            # M's lower triangle is read (as the factor's), rhs read, X
+            # written
+            b = bound(4 * Bc * (n * (n + 1) // 2 + 2 * n * k),
+                      Bc * (n ** 3 / 3 + 2 * n * n * k))
+            if (Bc, k) == (Bp, 13):
+                rec["chol_solve"] = (w.ms, pw.ms, b, lw.ms)
+            print(f"[time] {card}: chol_solve B={Bc} n={n} k={k}: device "
+                  f"time {w.ms:.5f} ms (window total {w.total_ms:.5f} ms, "
+                  f"{w.share:.2%} of launches recorded), plain {pw.ms:.5f} "
+                  f"ms, torch.linalg.solve {lw.ms:.5f} ms; CUDA events "
+                  f"{ms:.5f} / {pms:.5f} / {lms:.5f} ms; bound {b[0]:.6f} ms "
+                  f"({b[1]})", flush=True)
 
     torch.cuda.synchronize()
     t = time.perf_counter()

@@ -1,30 +1,36 @@
 #!/usr/bin/env python3
-"""The fused Riccati passes of this checkout and of another tree, on one
-card, in turns.
+"""The fused Riccati passes, and the use_pallas scan's chol_solve, of this
+checkout and of another tree, on one card, in turns.
 
     python3 fused_turns.py --other DIR    # DIR: another tree, e.g. a commit
                                           # unpacked by git archive under
                                           # _checkout/
 
-Builds apf_quadruped_tpu_torch/csrc/fused_riccati.cu of this checkout and of
-DIR (the C interface is the same in both) and runs ops.cuda_riccati's
-wrappers on either library:
+Builds apf_quadruped_tpu_torch/csrc/fused_riccati.cu and csrc/spd_chol.cu of
+this checkout and of DIR (the C interfaces are the same in both) and runs
+the port's wrappers (ops.cuda_riccati, ops.cuda_chol) on either tree's
+libraries:
   1. at B = 256 and 2048, H = 20, 13 states, 12 inputs, 24 rows (masks
-     0.6): the factor and vector passes of both within 1e-5 (relative to
-     the largest entry) of their plain versions; ptxas's registers, stack
-     and spills for every kernel of both libraries;
-  2. the device time of one call of the rollout (the same kernel in both
-     trees: the control), factor and vector passes in turns (DIR, this,
+     0.6): the rollout, factor and vector passes of both within 1e-5
+     (relative to the largest entry) of their plain versions; ptxas's
+     registers, stack and spills for every kernel of both libraries;
+  2. the device time of one call of the rollout (the subject of a rollout
+     change), factor and vector passes (its control) in turns (DIR, this,
      this, DIR; three rounds): the median of the profiler windows that
      recorded every launch (chip_smoke.window), and the CUDA-event time in
      the same turns, with each pass's bound (chip_smoke.pass_work) and the
      card's SM clock and power draw;
   3. the fused plan (planner.plan, backend "riccati_fused", bench.py's
-     problem, B = 2048, H = 20, cold) with either library in turns: its
+     problem, B = 2048, H = 20, cold) with either tree in turns: its
      device time a plan under the profiler, solves/s by the host clock
      (median of 6 bursts of 5 plans), the converged share and the lanes
      whose iters differ from the plain plan (backend "riccati") on the
-     same problem.
+     same problem;
+  4. the scan with SolverConfig(use_pallas=True) (backend "riccati", the
+     first 256 scenarios of that problem: every 12 x 12 solve through
+     chol_solve) with either tree in turns: its device time a plan, its
+     chol_solve launches, the converged share and the lanes whose iters
+     agree with the default scan's.
 Runs in a process of its own: chip_smoke.py's tick profiles leave later
 profiler windows short of events (PERF.md section 7).  Prints the card's
 name and power limit beside the numbers.  Needs one CUDA card and nvcc;
@@ -32,6 +38,7 @@ imports no JAX.
 """
 
 import argparse
+import dataclasses
 import time
 from pathlib import Path
 
@@ -41,22 +48,26 @@ import torch
 from apf_quadruped_tpu_torch import _kernels, planner, problems
 from apf_quadruped_tpu_torch.config import (EngineConfig, MpcConfig,
                                             SolverConfig)
+from apf_quadruped_tpu_torch.ops import cuda_chol
 from apf_quadruped_tpu_torch.ops import cuda_riccati as cr
 from chip_smoke import (bound, check, event_ms, median, pass_work,
                         print_ptxas, smi, span, turns)
 
-SRC = Path("apf_quadruped_tpu_torch/csrc/fused_riccati.cu")
+CSRC = Path("apf_quadruped_tpu_torch/csrc")
 
 
-def on(lib, fn):
-    """fn, run with the port's fused-pass wrappers launching from `lib`."""
+def on(libs, fn):
+    """fn, run with the port's fused-pass and SPD wrappers launching from
+    `libs` ({"fused_riccati": ..., "spd_chol": ...})."""
     def call():
-        saved = _kernels.fused_riccati
-        _kernels.fused_riccati = lambda: lib
+        saved = {name: getattr(_kernels, name) for name in libs}
+        for name, lib in libs.items():
+            setattr(_kernels, name, lambda lib=lib: lib)
         try:
             return fn()
         finally:
-            _kernels.fused_riccati = saved
+            for name, f in saved.items():
+                setattr(_kernels, name, f)
     return call
 
 
@@ -90,11 +101,16 @@ def main():
         raise RuntimeError("fused_turns.py needs a CUDA card")
     card = smi("name,power.limit")
     other = args.other.name
-    libs = {other: _kernels.fused_riccati(args.other.resolve() / SRC,
-                                          "fused_riccati_other"),
-            "this": _kernels.fused_riccati()}
-    print_ptxas(_kernels, "fused_riccati_other")
-    print_ptxas(_kernels, "fused_riccati")
+    root = args.other.resolve() / CSRC
+    libs = {other: {"fused_riccati": _kernels.fused_riccati(
+                        root / "fused_riccati.cu", "fused_riccati_other"),
+                    "spd_chol": _kernels.spd_chol(root / "spd_chol.cu",
+                                                  "spd_chol_other")},
+            "this": {"fused_riccati": _kernels.fused_riccati(),
+                     "spd_chol": _kernels.spd_chol()}}
+    for name in ("fused_riccati_other", "fused_riccati", "spd_chol_other",
+                 "spd_chol"):
+        print_ptxas(_kernels, name)
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
 
@@ -109,18 +125,23 @@ def main():
         Fp = cr.plain_factor_pass(*fac)
         vec = (d["G"], d["A"], d["B"], *Fp, d["rx"], d["vm"])
         Vp = cr.plain_vector_pass(*vec)
+        Rp = cr.plain_rollout(*roll)
         for tree, lib in libs.items():
+            X = on(lib, lambda: cr.fused_rollout(*roll))()
             F = on(lib, lambda: cr.fused_factor(*fac))()
             V = on(lib, lambda: cr.fused_vector(*vec))()
-            errs = ([rel(a, b) for a, b in zip(F, Fp)]
+            errs = ([rel(a, b) for a, b in zip(X, Rp)]
+                    + [rel(a, b) for a, b in zip(F, Fp)]
                     + [rel(a, b) for a, b in zip(V, Vp)])
             check(max(errs) <= 1e-5 and bool((torch.triu(F[0], 1) == 0)
                                               .all()),
-                  f"{tree} factor/vector B={B} within 1e-5 of the plain "
-                  f"versions ({max(errs):.2e})")
-            print(f"[check] {tree}: B={B} H=20: rel err factor L/dinv/K "
-                  f"{errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e}, vector du/gdu "
-                  f"{errs[3]:.2e}/{errs[4]:.2e} (gate 1e-5)", flush=True)
+                  f"{tree} passes B={B} within 1e-5 of the plain versions "
+                  f"({max(errs):.2e})")
+            print(f"[check] {tree}: B={B} H=20: rel err rollout x/rx/gu "
+                  f"{errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e}, factor "
+                  f"L/dinv/K {errs[3]:.2e}/{errs[4]:.2e}/{errs[5]:.2e}, "
+                  f"vector du/gdu {errs[6]:.2e}/{errs[7]:.2e} (gate 1e-5)",
+                  flush=True)
         for name, fn, reps in (
                 ("rollout", lambda: cr.fused_rollout(*roll), 50),
                 ("factor", lambda: cr.fused_factor(*fac), 50),
@@ -195,6 +216,43 @@ def main():
               f"bursts of 5 plans: {[round(r, 1) for r in rates[tree]]}); "
               f"SM clock {span(clock)} MHz, power draw {span(draw)} W",
               flush=True)
+
+    # the scan with use_pallas (every 12 x 12 solve through chol_solve)
+    # with either tree, against the default scan
+    Bp = 256
+    xp, refs_p = x0[:Bp], refs._replace(**{
+        k: v[:Bp] for k, v in refs._asdict().items() if v is not None})
+    cfg_s = EngineConfig(mpc=MpcConfig(**mpc, backend="riccati"),
+                         solver=SolverConfig())
+    cfg_p = dataclasses.replace(cfg_s, solver=SolverConfig(use_pallas=True))
+    scan = planner.plan(cfg_s, xp, refs_p)
+    fns = {tree: on(lib, lambda: planner.plan(cfg_p, xp, refs_p))
+           for tree, lib in libs.items()}
+    for tree, fn in fns.items():
+        n0 = cuda_chol.chol_solve.launches
+        out = fn()
+        torch.cuda.synchronize()
+        launches = cuda_chol.chol_solve.launches - n0
+        conv = float(out.sol.converged.float().mean())
+        agree = float(((out.sol.iters == scan.sol.iters)
+                       & (out.sol.converged == scan.sol.converged))
+                      .float().mean())
+        print(f"[pallas] {card}: {tree}'s use_pallas plan B={Bp} H={H} "
+              f"cold: {launches} chol_solve launches, converged {conv:.4f} "
+              f"(default scan {float(scan.sol.converged.float().mean()):.4f})"
+              f", converged/iters agree with the default scan on "
+              f"{agree:.4f} of lanes", flush=True)
+        check(conv >= 0.99 and agree >= 0.995,
+              f"{tree}'s use_pallas plan agrees with the default scan")
+    t = turns(fns, reps=2)
+    clock, draw, _ = zip(*(c.split(",") for c in t["clocks"]))
+    for tree in (other, "this"):
+        ms, n = lossless_ms(t[tree])
+        print(f"[pallas] {card}: {tree}'s use_pallas plan B={Bp} H={H} cold, "
+              f"in turns: device time {ms:.4f} ms a plan (median of "
+              f"{n or len(t[tree])} windows{'' if n else ', none lossless'}: "
+              f"{[round(w.ms, 4) for w in t[tree]]}); SM clock {span(clock)} "
+              f"MHz, power draw {span(draw)} W", flush=True)
 
 
 if __name__ == "__main__":

@@ -44,6 +44,30 @@ def _spd(rng, B, n):
     return (A @ A.transpose(0, 2, 1) + n * np.eye(n)).astype(np.float32)
 
 
+@pytest.mark.parametrize("n,width", [(1, 12), (5, 12), (11, 12), (13, 18),
+                                     (19, 30)])
+@pytest.mark.parametrize("k", [1, 13])
+def test_padded_chol_solve_is_exact(rng, n, width, k):
+    """The factor-and-solve kernel runs n x n at a compile-time width >= n
+    (csrc/spd_chol.cu: 12, 18 or 30), M padded with an identity block and
+    the right-hand sides with zero rows: the padded solve, sliced back, is
+    the unpadded one (float64, 1e-12), with exact zeros on the padded
+    rows."""
+    A = rng.normal(size=(3, n, n))
+    M = A @ A.transpose(0, 2, 1) + n * np.eye(n)
+    r = rng.normal(size=(3, n, k))
+    Mp = np.tile(np.eye(width), (3, 1, 1))
+    Mp[:, :n, :n] = M
+    rp = np.zeros((3, width, k))
+    rp[:, :n] = r
+    X = chol.plain_chol_solve(torch.as_tensor(M), torch.as_tensor(r))
+    Xp = chol.plain_chol_solve(torch.as_tensor(Mp), torch.as_tensor(rp))
+    assert Xp.dtype == torch.float64
+    torch.testing.assert_close(Xp[:, :n], X, rtol=0, atol=1e-12)
+    assert torch.equal(Xp[:, n:], torch.zeros(3, width - n, k,
+                                              dtype=torch.float64))
+
+
 @pytest.mark.parametrize("k", [1, 13])
 def test_plain_chol_solve_matches_tpu_kernel(rng, k):
     B = 65 // k                       # one 65-lane kernel call either way

@@ -492,11 +492,17 @@ def test_spd_route_above_kernel_size_launches_nothing(rng, dev):
 # chol_solve (csrc/spd_chol.cu spd_solve_kernel) and the scan's use_pallas
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("B", [1, 64, 2048])
-@pytest.mark.parametrize("k", [1, 13])
-def test_chol_solve_kernel_matches_plain(rng, dev, B, k):
-    M = _spd(rng, B, 12, dev)
-    r = torch.as_tensor(rng.normal(size=(B, 12, k)), dtype=torch.float32,
+# chol_solve compiles to widths 12, 18 and 30 (n <= 12, 13..18, 19..30,
+# padded with an identity block as staged); 31 <= n <= 64 takes the wide
+# body.  k < 8 runs lanes over rows, k >= 8 lanes over the right-hand
+# sides, 32 at a time.  The sizes sit on each edge; the batches around the
+# use_pallas scan's 256 and past 2048.
+@pytest.mark.parametrize("n", [1, 5, 11, 12, 13, 18, 19, 30, 31, 64])
+@pytest.mark.parametrize("B", [1, 64, 257, 2049])
+@pytest.mark.parametrize("k", [1, 7, 8, 13, 33])
+def test_chol_solve_kernel_matches_plain(rng, dev, n, B, k):
+    M = _spd(rng, B, n, dev)
+    r = torch.as_tensor(rng.normal(size=(B, n, k)), dtype=torch.float32,
                         device=dev)
     before = cuda_chol.chol_solve.launches
     X = chol.chol_solve(M, r)
@@ -504,13 +510,44 @@ def test_chol_solve_kernel_matches_plain(rng, dev, B, k):
     assert _rel(X, chol.plain_chol_solve(M, r)) <= 1e-5
 
 
-def test_chol_solve_kernel_nan_lane(rng, dev):
-    M = _spd(rng, 5, 12, dev)
-    M[3, 4, 4] = -2.0
-    X = chol.chol_solve(M, torch.ones(5, 12, 13, device=dev))
-    Xp = chol.plain_chol_solve(M, torch.ones(5, 12, 13, device=dev))
-    assert bool(X[3].isnan().all() & Xp[3].isnan().all())
-    assert bool(X[[0, 1, 2, 4]].isfinite().all())
+@pytest.mark.parametrize("n", [5, 12, 13, 30, 64])
+@pytest.mark.parametrize("k", [1, 13])
+def test_chol_solve_kernel_nan_lane(rng, dev, n, k):
+    """A matrix that is not positive definite, and one with a NaN below
+    the diagonal, give all-NaN X, as the plain version's; every other lane
+    is bit for bit what it is in a batch without them."""
+    M = _spd(rng, 5, n, dev)
+    r = torch.as_tensor(rng.normal(size=(5, n, k)), dtype=torch.float32,
+                        device=dev)
+    X0 = cuda_chol.chol_solve(M, r)
+    bad = M.clone()
+    bad[3, n - 1, n - 1] = -2.0
+    bad[1, n - 1, 0] = bad[1, 0, n - 1] = float("nan")
+    X = cuda_chol.chol_solve(bad, r)
+    Xp = chol.plain_chol_solve(bad, r)
+    for lane in (1, 3):
+        assert bool(X[lane].isnan().all() & Xp[lane].isnan().all())
+    assert torch.equal(X[[0, 2, 4]], X0[[0, 2, 4]])
+
+
+@pytest.mark.parametrize("n", [12, 18, 30])
+@pytest.mark.parametrize("k", [1, 13])
+def test_chol_solve_kernel_unaligned_buffers(rng, dev, n, k):
+    """M and rhs that do not start on a 16-byte boundary (contiguous views
+    one float into their storage): M is staged row by row instead of with
+    16-byte copies, with the same answer bit for bit."""
+    M = _spd(rng, 5, n, dev)
+    r = torch.as_tensor(rng.normal(size=(5, n, k)), dtype=torch.float32,
+                        device=dev)
+    X = cuda_chol.chol_solve(M, r)
+
+    def shifted(t):
+        s = torch.empty(t.numel() + 1, device=dev)
+        s[1:] = t.reshape(-1)
+        return s[1:].view(t.shape)
+    Mu, ru = shifted(M), shifted(r)
+    assert Mu.data_ptr() % 16 != 0 and Mu.is_contiguous()
+    assert torch.equal(cuda_chol.chol_solve(Mu, ru), X)
 
 
 def test_use_pallas_scan_on_the_card(rng, dev):
@@ -606,6 +643,57 @@ def test_fused_factor_vector_batch_off_the_block(rng, dev, B):
 def test_fused_factor_vector_padded_widths(rng, dev, nx, nu, m):
     _factor_vector_against_plain(_pass_data(rng, dev, 6, H=4, nx=nx, nu=nu,
                                             m=m))
+
+
+def _rollout_against_plain(d):
+    """fused_rollout against its plain version, 1e-5 relative to the
+    largest entry of each output."""
+    from apf_quadruped_tpu_torch.ops import cuda_riccati as cr
+    args = (d["G"], d["R"], d["Q"], d["A"], d["B"], d["qlin"], d["u"],
+            d["zm"], d["x0"])
+    for a, b in zip(cr.fused_rollout(*args), cr.plain_rollout(*args)):
+        assert _rel(a, b) <= 1e-5
+
+
+# The rollout stages knot k -+ 1 into a two-slot ring while it works on
+# knot k and keeps each knot's costate bracket on chip for the backward
+# sweep: one knot, two, a long horizon and the longest it takes.
+@pytest.mark.parametrize("H", [1, 2, 30, "H_MAX"])
+def test_fused_rollout_ring_over_horizons(rng, dev, H):
+    from apf_quadruped_tpu_torch import _kernels
+    H = _kernels.fused_riccati_limits()[3] if H == "H_MAX" else H
+    _rollout_against_plain(_pass_data(rng, dev, 9, H=H))
+
+
+@pytest.mark.parametrize("B", [1, 2049])
+def test_fused_rollout_batch_off_the_block(rng, dev, B):
+    _rollout_against_plain(_pass_data(rng, dev, B, H=5))
+
+
+# Compile-time widths 13 / 12 and 24 or 32 rows, smaller problems padded
+# as each knot is staged.
+@pytest.mark.parametrize("nx,nu,m", [(1, 1, 1), (6, 4, 8), (13, 12, 5),
+                                     (13, 12, 25), (13, 12, 32)])
+def test_fused_rollout_padded_widths(rng, dev, nx, nu, m):
+    _rollout_against_plain(_pass_data(rng, dev, 6, H=4, nx=nx, nu=nu, m=m))
+
+
+@pytest.mark.parametrize("k_bad", [0, 3, 6])
+def test_fused_rollout_nan_knot(rng, dev, k_bad):
+    """A NaN in one knot's A gives the plain version's NaN pattern in x, rx
+    and gu, the finite entries within 1e-5 of it; other lanes finite."""
+    from apf_quadruped_tpu_torch.ops import cuda_riccati as cr
+    d = _pass_data(rng, dev, 5, H=7)
+    d["A"][2, k_bad, 3, 5] = float("nan")
+    args = (d["G"], d["R"], d["Q"], d["A"], d["B"], d["qlin"], d["u"],
+            d["zm"], d["x0"])
+    for a, b in zip(cr.fused_rollout(*args), cr.plain_rollout(*args)):
+        assert torch.equal(a.isnan(), b.isnan())
+        ok = ~b.isnan()
+        assert float((a[ok] - b[ok]).abs().max()) <= 1e-5 * float(
+            b[ok].abs().max())
+        assert bool(a[[0, 1, 3, 4]].isfinite().all())
+    assert bool(cr.fused_rollout(*args)[0][2, k_bad:].isnan().any())
 
 
 @pytest.mark.parametrize("k_bad", [0, 3, 6])

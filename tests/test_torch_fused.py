@@ -261,21 +261,25 @@ def test_fused_rejects_state_and_accel_rows(rng):
 
 
 def _pad_as_the_kernels(d, NX=13, NU=12, MP=24):
-    """The problem as csrc/fused_riccati.cu's factor and vector kernels
-    stage it at their compile-time widths: A, B, Q, G (rows and columns),
-    W, rx and vm padded with zeros, R with an identity block."""
+    """The problem as csrc/fused_riccati.cu's kernels stage it at their
+    compile-time widths: A, B, Q, G (rows and columns), W, rx, vm, u, zm,
+    q and x0 padded with zeros, R (and its regularised copy) with an
+    identity block."""
     def pad(v, shape):
         out = np.zeros(v.shape[:v.ndim - len(shape)] + shape)
         out[tuple(slice(0, n) for n in v.shape)] = v
         return out
-    B, H = d["A"].shape[:2]
-    R = pad(d["Rreg"], (NU, NU))
-    nu = d["Rreg"].shape[0]
-    R[range(nu, NU), range(nu, NU)] = 1.0
-    return dict(G=pad(d["G"], (MP, NU)), Rreg=R, Q=pad(d["Q"], (NX, NX)),
+    def pad_r(R):
+        out = pad(R, (NU, NU))
+        out[range(R.shape[0], NU), range(R.shape[0], NU)] = 1.0
+        return out
+    return dict(G=pad(d["G"], (MP, NU)), Rreg=pad_r(d["Rreg"]),
+                R=pad_r(d["R"]), Q=pad(d["Q"], (NX, NX)),
                 A=pad(d["A"], (NX, NX)), B=pad(d["B"], (NX, NU)),
                 W=pad(d["W"], (MP,)), rx=pad(d["rx"], (NU,)),
-                vm=pad(d["vm"], (MP,)))
+                vm=pad(d["vm"], (MP,)), u=pad(d["u"], (NU,)),
+                zm=pad(d["zm"], (MP,)), qlin=pad(d["qlin"], (NX,)),
+                x0=pad(d["x0"], (NX,)))
 
 
 def test_kernel_padding_is_exact(rng):
@@ -309,3 +313,24 @@ def test_kernel_padding_is_exact(rng):
     torch.testing.assert_close(gdup[..., :m], gdu, **close)
     assert torch.equal(dup[..., nu:], torch.zeros_like(dup[..., nu:]))
     assert torch.equal(gdup[..., m:], torch.zeros_like(gdup[..., m:]))
+
+
+@pytest.mark.parametrize("MP", [24, 32])
+def test_rollout_padding_is_exact(rng, MP):
+    """The rollout kernel runs nx <= 13, nu <= 12, m <= 24 (or 32) at
+    13 / 12 / 24 (32), padded as each knot is staged: plain_rollout on the
+    padded problem, sliced back, gives the unpadded x, rx and gu (float64,
+    to 1e-12), and the padded x, rx and gu are exactly 0."""
+    nx, nu, m = 6, 4, 8
+    d = {k: np.asarray(v, np.float64)
+         for k, v in _pass_inputs(rng, B=3, H=5, NX=nx, NU=nu, M=m).items()}
+    p = _pad_as_the_kernels(d, MP=MP)
+    names = ("G", "R", "Q", "A", "B", "qlin", "u", "zm", "x0")
+    x, rx, gu = cr.plain_rollout(*(_t(d[k]) for k in names))
+    xp, rxp, gup = cr.plain_rollout(*(_t(p[k]) for k in names))
+    close = dict(rtol=0, atol=1e-12)
+    torch.testing.assert_close(xp[..., :nx], x, **close)
+    torch.testing.assert_close(rxp[..., :nu], rx, **close)
+    torch.testing.assert_close(gup[..., :m], gu, **close)
+    for v, n in ((xp, nx), (rxp, nu), (gup, m)):
+        assert torch.equal(v[..., n:], torch.zeros_like(v[..., n:]))

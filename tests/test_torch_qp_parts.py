@@ -56,10 +56,12 @@ def test_plain_spd_pair_matches_pallas_kernels(rng, n, k):
     assert bool(L_bad[[0, 2, 3, 4]].isfinite().all())
 
 
-@pytest.mark.parametrize("n,width", [(1, 18), (17, 18), (19, 30), (29, 30)])
+@pytest.mark.parametrize("n,width", [(1, 12), (5, 12), (11, 12), (1, 18),
+                                     (17, 18), (19, 30), (29, 30)])
 def test_identity_padding_is_exact(rng, n, width):
-    """The CUDA kernels run an n x n matrix at a compile-time width >= n,
-    padded with an identity block (csrc/spd_chol.cu): the factor of
+    """The CUDA kernels run an n x n matrix at a compile-time width >= n
+    (12 for the factor-and-solve only, 18, 30), padded with an identity
+    block (csrc/spd_chol.cu): the factor of
     diag(H, I) is diag(L_H, I), and the padded solve with zero rows below
     the right-hand side gives the unpadded solution over zeros."""
     A = rng.normal(size=(3, n, n))
