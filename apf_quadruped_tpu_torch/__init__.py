@@ -5,10 +5,13 @@ module here keeps its counterpart's name, function names, NamedTuple
 fields and array layouts (batch first, horizon next), and the tests feed
 both packages the same numpy inputs.
 
-Ported so far: the MPC plan path (`planner.plan`, every backend) and the
-batched closed loop (`runtime/sweep.run_batch` -> `runtime/loop.run_cycle`).
-    config.py, models/dogbot.py, runtime/native.py — the port's own
-                  copies of the JAX package's pure-Python files
+The port does all that the JAX package does: the MPC plan path
+(`planner.plan`, every backend), the batched closed loop
+(`runtime/sweep.run_batch` -> `runtime/loop.run_cycle`), resumable and
+sharded sweeps, the zoo robots and the whole command line.
+    config.py, models/dogbot.py, models/zoo.py, runtime/native.py,
+    runtime/viz.py — the port's own copies of the JAX package's
+                  pure-Python files
     ops/rotations.py, models/srb.py, gait.py — plain tensor code
     ops/riccati.py — the stage-QP Riccati IPM as plain PyTorch (the CPU
                   path, and the plain version of the CUDA kernel)
@@ -25,8 +28,11 @@ batched closed loop (`runtime/sweep.run_batch` -> `runtime/loop.run_cycle`).
     apf.py, foothold.py, swing.py, wbc.py — navigation, foothold selection,
                   swing splines, the whole-body QP
     sim/ — terrain, disturbances, penalty-contact physics
-    runtime/ — the momentum observer, the closed loop, the sweep
-    __main__.py — the `sweep` command
+    runtime/ — the momentum observer, the closed loop, the sweep (one
+                  device, sharded, resumable), checkpoints, profiling
+    parallel/ — the scenario mesh over devices and processes
+                  (torch.distributed)
+    __main__.py — the `run`, `sweep` and `bench` commands
     _device.py — the entry points' device rule (the card unless asked)
     convert.py — carries JAX-package NamedTuples across as tensors
 

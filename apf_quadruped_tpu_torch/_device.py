@@ -1,9 +1,10 @@
 """The device rule of the port's entry points.
 
 The entry points a user calls (`problems.bench_problem`,
-`runtime.sweep.random_scenarios`, `runtime.loop.init`, the `sweep`
-command) put their tensors on the CUDA card unless the caller asks for the
-CPU; every other function follows its input tensors' device.  Without a
+`runtime.sweep.random_scenarios`, `runtime.loop.init`,
+`parallel.mesh.scenario_mesh()`, the commands and their `run_closed_loop`
+and `bench_rate`) put their tensors on the CUDA card unless the caller
+asks for the CPU; every other function follows its input tensors' device.  Without a
 card, asking for it raises, naming how to ask for the CPU instead: there
 is no silent fallback.
 """

@@ -1,16 +1,20 @@
-"""Batched scenario sweeps.
+"""Batched scenario sweeps: one batch on a device, or split over a mesh
+of devices and processes, and resumable from checkpoints.
 
-Port of the single-device part of apf_quadruped_tpu/runtime/sweep.py:
-a batch of (terrain, target, disturbance) scenarios walks through the
-closed loop (runtime/loop.py) in lockstep.  The JAX module vmaps a
-single-scenario loop; the port's loop is batched already, so the batch
-runs as it is.  Scenario generation is host-side data loading: the native
-C++ rasterizer (runtime/native.py) when g++ builds it, else numpy with the
-JAX module's RNG order; the two give different scenarios from one seed.
+Port of apf_quadruped_tpu/runtime/sweep.py: a batch of (terrain, target,
+disturbance) scenarios walks through the closed loop (runtime/loop.py) in
+lockstep.  The JAX module vmaps a single-scenario loop; the port's loop
+is batched already, so the batch runs as it is.  The sharded drivers
+split the batch over parallel/mesh.py's device list and gather the result
+on every process.  Scenario generation is host-side data loading: the
+native C++ rasterizer (runtime/native.py) when g++ builds it, else numpy
+with the JAX module's RNG order; the two give different scenarios from
+one seed.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -18,8 +22,9 @@ import torch
 
 from .._device import resolve_device
 from ..config import EngineConfig
+from ..parallel import mesh as mesh_mod
 from ..sim import disturbance, terrain as terrain_mod
-from . import loop, native
+from . import checkpoint, loop, native
 
 
 class Scenario(NamedTuple):
@@ -44,14 +49,21 @@ class SweepResult(NamedTuple):
     metrics: loop.CycleMetrics  # stacked (B, n_cycles, ...)
 
 
-def cli_config(iters: int = 15) -> EngineConfig:
-    """The configuration of the JAX CLI's `sweep` subcommand
-    (apf_quadruped_tpu/__main__.py `_cfg` for DogBot): trot, H=20, one SQP
-    iteration, SolverConfig(iters, reltol=abstol=1e-2),
-    slack_weight_trot=1e6."""
+def cli_config(iters: int = 15, robot: str = "dogbot", gait: str = "trot",
+               sqp: int = 1) -> EngineConfig:
+    """The configuration of the command line (apf_quadruped_tpu/__main__.py
+    `_cfg`): the robot's closed-loop config (models/zoo.py for anymal and
+    hyq), with the gait mode, horizon 40 for the 1 s crawl / adaptive
+    cycle and 20 otherwise, `sqp` SQP iterations, SolverConfig(iters,
+    reltol=abstol=1e-2) and slack_weight_trot=1e6 layered on top.  The
+    defaults are the `sweep` command's DogBot trot."""
     from ..config import GaitConfig, MpcConfig, SolverConfig, WbcConfig
-    return EngineConfig(gait=GaitConfig(mode="trot"),
-                        mpc=MpcConfig(horizon=20, sqp_iters=1),
+    from ..models import zoo
+    base = (zoo.engine_config_for(robot) if robot != "dogbot"
+            else EngineConfig())
+    horizon = 40 if gait in ("crawl", "adaptive") else 20
+    return base.replace(gait=GaitConfig(mode=gait),
+                        mpc=MpcConfig(horizon=horizon, sqp_iters=sqp),
                         solver=SolverConfig(iters=iters, reltol=1e-2,
                                             abstol=1e-2),
                         wbc=WbcConfig(slack_weight_trot=1e6))
@@ -136,19 +148,127 @@ def result(scn: Scenario, st2: loop.LoopState,
         slip_frac=metrics.slip_ticks.mean(dim=-1), metrics=metrics)
 
 
-def run_resumable(*args, **kwargs):
-    raise NotImplementedError(
-        "run_resumable (chunked sweeps with checkpoint/resume) is not ported "
-        "yet (ROADMAP queue 1, item 15)")
+def step_batch_sharded(cfg: EngineConfig, scn: list, states: list,
+                       n_cycles: int, mesh: mesh_mod.ScenarioMesh):
+    """step_batch on each shard of the mesh: `scn` and `states` are
+    sharded trees (mesh.shard_batch), and each shard advances its lanes on
+    its own device with no traffic between shards.  Returns the sharded
+    (states', CycleMetrics)."""
+    outs = [step_batch(cfg, s, st, n_cycles) for s, st in zip(scn, states)]
+    return [o[0] for o in outs], [o[1] for o in outs]
 
 
-def step_batch_sharded(*args, **kwargs):
-    raise NotImplementedError(
-        "step_batch_sharded (the batch sharded over devices) is not ported "
-        "yet (ROADMAP queue 1, item 17)")
+def _concat_metrics(parts) -> loop.CycleMetrics:
+    """Per-chunk CycleMetrics (B, n, ...) joined on the cycle axis."""
+    return loop.CycleMetrics(*(torch.cat(v, dim=1) for v in zip(*parts)))
 
 
-def run_sharded(*args, **kwargs):
-    raise NotImplementedError(
-        "run_sharded (the batch sharded over devices) is not ported yet "
-        "(ROADMAP queue 1, item 17)")
+CURSOR = "cursor.pt"
+
+
+def _shard_path(ckpt_dir: str, start: int) -> str:
+    """The metric shard of the chunk that starts at cycle `start`."""
+    return os.path.join(ckpt_dir, f"metrics-{start:08d}.pt")
+
+
+def _restore_metrics(ckpt_dir: str, done: int, device) -> list:
+    """The metric shards of the first `done` cycles, in order."""
+    parts, start = [], 0
+    while start < done:
+        raw = checkpoint.restore(_shard_path(ckpt_dir, start), device=device)
+        parts.append(loop.CycleMetrics(**raw["metrics"]))
+        start += parts[-1].com.shape[1]
+    if start != done:
+        raise RuntimeError(f"{ckpt_dir}: the metric shards hold {start} "
+                           f"cycles, the cursor {done}")
+    return parts
+
+
+def run_resumable(cfg: EngineConfig, scn: Scenario, n_cycles: int,
+                  chunk: int = 2, ckpt_dir: str | None = None,
+                  devices=None, _crash_after: int | None = None):
+    """Chunked batch driver with checkpoint / resume: a preempted sweep
+    resumes mid-run and finishes with results equal, bit for bit, to an
+    uninterrupted one (the LoopState is the whole carried state).
+
+    Drives init_batch / step_batch in `chunk`-cycle pieces.  After every
+    chunk it writes into `ckpt_dir` that chunk's CycleMetrics as a shard of
+    their own (`metrics-<first cycle>.pt`), then the cursor (`cursor.pt`:
+    the cycles done and the LoopStates), each atomically: the bytes written
+    a chunk do not grow with the cycles done, and a kill at any point
+    leaves a cursor and the shards it counts.  No directory = no
+    persistence, a plain chunked run.  On entry, an existing cursor
+    resumes from its cycle.
+
+    Returns (final LoopStates, CycleMetrics stacked (B, n_cycles, ...)).
+
+    devices: None = the batch on its own device; a device list = the batch
+    (and the carried states) split over the scenario mesh per chunk
+    (step_batch_sharded).  Checkpoints gather to the host, written by
+    process 0; a resume splits them again.  The result is gathered, the
+    whole batch on every process.
+
+    _crash_after: test hook, raise after that many chunks (a preemption
+    after the save, like a kill between chunks).
+    """
+    mesh = None if devices is None else mesh_mod.scenario_mesh(devices)
+    dev = scn.target_xy.device if mesh is None else mesh.devices[0]
+    states = init_batch(cfg, scn)
+    cursor = None if ckpt_dir is None else os.path.join(ckpt_dir, CURSOR)
+    done, parts = 0, []
+    if cursor is not None and checkpoint.exists(cursor):
+        raw = checkpoint.restore(cursor, like={"cycles_done": 0,
+                                               "states": states})
+        done, states = int(raw["cycles_done"]), raw["states"]
+        parts = _restore_metrics(ckpt_dir, done, dev)
+    if mesh is not None:
+        scn_run = mesh_mod.shard_batch(mesh, scn)
+        states = mesh_mod.shard_batch(mesh, states)
+    chunks_run = 0
+    while done < n_cycles:
+        n = min(chunk, n_cycles - done)
+        if mesh is None:
+            states, m = step_batch(cfg, scn, states, n)
+        else:
+            states, m = step_batch_sharded(cfg, scn_run, states, n, mesh)
+            m = mesh_mod.gather(mesh, m)
+        parts.append(m)
+        if ckpt_dir is not None:
+            whole = states if mesh is None else mesh_mod.gather(mesh, states)
+            if mesh is None or mesh.rank == 0:
+                checkpoint.save(_shard_path(ckpt_dir, done), {"metrics": m})
+                checkpoint.save(cursor, {"cycles_done": done + n,
+                                         "states": whole})
+            if mesh is not None and mesh.world > 1:
+                torch.distributed.barrier()
+        done += n
+        chunks_run += 1
+        if _crash_after is not None and chunks_run >= _crash_after \
+                and done < n_cycles:
+            raise RuntimeError(f"simulated preemption after {done} cycles")
+    if not parts:
+        raise ValueError(
+            f"run_resumable: nothing to run or return (n_cycles="
+            f"{n_cycles} with no prior checkpoint progress)")
+    if mesh is not None:
+        states = mesh_mod.gather(mesh, states)
+    return states, _concat_metrics(parts)
+
+
+def run_sharded(cfg: EngineConfig, scn: Scenario, n_cycles: int,
+                devices=None) -> tuple[SweepResult, dict]:
+    """run_batch on each shard of the scenario mesh (parallel/mesh.py):
+    the whole batch's SweepResult, gathered on every process, and the
+    mean sweep stats (goal_dist, fell, qp_converged, slip_frac) averaged
+    over the shards and the processes."""
+    m = mesh_mod.scenario_mesh(devices)
+
+    def per_shard(s):
+        res = run_batch(cfg, s, n_cycles)
+        stats = {"goal_dist": res.goal_dist.mean(),
+                 "fell": res.fell.to(torch.float32).mean(),
+                 "qp_converged": res.qp_converged.mean(),
+                 "slip_frac": res.slip_frac.mean()}
+        return res, stats
+
+    return mesh_mod.sharded_map(m, per_shard)(mesh_mod.shard_batch(m, scn))

@@ -28,7 +28,8 @@ Phases; each raises on failure, so any failure exits non-zero:
      not positive definite, and solve_qp on WBC-shaped QPs (n=30, p=30,
      m=68, B=1024) through the kernels vs the plain route (CPU);
   9. the closed loop: (a) the JAX suite's health case (flat ground, target
-     (0, 1), 4 cycles, B=8), (b) the main path, sweep.run_batch at the
+     (0, 1), B=8; 2 cycles, cut from its 4 for time, its forward progress
+     asked pro rata), (b) the main path, sweep.run_batch at the
      CLI's sweep configuration (B=64, H=20, 128^2 terrain, 2 cycles), with
      the kernels' launch counts, (c) the loop against the JAX package's
      float32 run (tests/data/loop_golden.npz);
@@ -62,6 +63,22 @@ Phases; each raises on failure, so any failure exits non-zero:
      events) beside its plain version and, for chol_solve, torch.linalg.
      solve, at n=12, k in {13, 1}, B=256 (the use_pallas path's shape, the
      one recorded) and B=2048; the condensed plan.
+ 15. the resumable sweep: sweep.run_resumable on phase 9(b)'s config and
+     scenarios (B=64, 2 cycles), one cycle a chunk, stopped by its test
+     hook after the first chunk and resumed from the checkpoint: every
+     final LoopState leaf and metric equal to phase 9(b)'s bit for bit;
+     the checkpoint's bytes a chunk and the launch counts;
+ 16. the zoo robots (anymal, hyq) through the `run` command's closed loop
+     (flat ground, target (0, 1.5), B=1, one cycle, float32) against the
+     JAX package's runs (tests/data/zoo_golden.npz) with phase 9(c)'s gate;
+ 17. the crawl plan's horizon H=40 (`run --gait crawl`) through the
+     resident kernel at B=64 against the plain plan and with phase 3's
+     gate on its stage QP, the kernel's time at H=40 (B 64 and 2048), and
+     the `bench` command once (its JSON line);
+ 18. sweep.run_sharded over ["cuda:0"] and ["cuda:0", "cuda:0"] at
+     tests/test_sweep.py's small config (B=8, one cycle) against run_batch,
+     then inside a world-size-1 NCCL group, where the gather and the
+     stats' mean run as NCCL collectives on the card.
 Every kernel's record carries its least possible time on this card
 (`bound_ms`: the larger of its bytes over 3.35 TB/s and its float32
 operations over 67 TFLOP/s, counted from this run's inputs and, for the
@@ -339,7 +356,8 @@ def print_ptxas(kernels, name):
                       f"{line.split(':', 1)[1].strip()}; {spills}")
 
 def closed_loop(dev, card, build_spd_s):
-    """Phases 7-10; returns the SPD kernels' JSON records."""
+    """Phases 7-10; returns phase 9(b)'s run (config, scenarios, final
+    states, metrics, seconds) and the SPD kernels' JSON records."""
     import numpy as np
     import torch
 
@@ -461,24 +479,27 @@ def closed_loop(dev, card, build_spd_s):
     # (a) tests/test_loop.py's health case: the production config
     cfg_h = EngineConfig(solver=SolverConfig(),
                          wbc=WbcConfig(slack_weight_trot=1e6))
-    Bh = 8
+    # depth cut from the JAX test's 4 cycles to 2 for time; its forward
+    # progress, 0.15 m in 4 cycles, is asked pro rata
+    Bh, cycles_h = 8, 2
+    y_min = 0.15 * cycles_h / 4
     t0 = time.perf_counter()
     st, m = loop.run(cfg_h, loop.init(cfg_h, Bh, device=dev),
                      terrain.flat(cfg_h.sim, batch=(Bh,), device=dev),
                      torch.tensor([[0.0, 1.0]] * Bh, device=dev),
-                     torch.zeros((Bh, 1, 8), device=dev), 4)
+                     torch.zeros((Bh, 1, 8), device=dev), cycles_h)
     torch.cuda.synchronize()
     com_y = m.com[:, -1, 1]
-    print(f"[loop] health case B={Bh}, 4 cycles in "
+    print(f"[loop] health case B={Bh}, {cycles_h} cycles in "
           f"{time.perf_counter() - t0:.1f} s: CoM y min "
-          f"{float(com_y.min()):.4f} (> 0.15), R22 min "
+          f"{float(com_y.min()):.4f} (> {y_min:g}), R22 min "
           f"{float(st.sim.R_wb[:, 2, 2].min()):.5f} (> 0.98), MPC converged "
           f"{bool(m.mpc_converged.all())}, qp_converged mean "
           f"{float(m.qp_converged.mean()):.4f} (> 0.9), track_err mean "
           f"{float(m.track_err.mean()):.5f} m (< 0.03), tau max "
           f"{float(m.tau_max.max()):.3f} (<= 60)", flush=True)
     check(finite(st.sim) and finite(m), "health case finite")
-    check(float(com_y.min()) > 0.15, "health case walks forward")
+    check(float(com_y.min()) > y_min, "health case walks forward")
     check(float(st.sim.R_wb[:, 2, 2].min()) > 0.98, "health case upright")
     check(bool(m.mpc_converged.all()), "health case MPC converged")
     check(float(m.qp_converged.mean()) > 0.9, "health case WBC converged")
@@ -497,7 +518,11 @@ def closed_loop(dev, card, build_spd_s):
     cuda_riccati.solve_stage_qp_resident.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = sweep.run_batch(cfg, scn, cycles)
+    # sweep.run_batch, its two steps apart: phase 15 holds every leaf of
+    # these final LoopStates, which the SweepResult does not carry
+    states_b, metrics_b = sweep.step_batch(cfg, scn,
+                                           sweep.init_batch(cfg, scn), cycles)
+    res = sweep.result(scn, states_b, metrics_b)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"spd_chol_factor": cuda_chol.chol_factor.launches,
@@ -518,34 +543,14 @@ def closed_loop(dev, card, build_spd_s):
     check(all(v > 0 for v in launches.values()),
           "the main path launched every kernel")
 
-    # (c) against the JAX package's float32 loop (B=4, one cycle).  Gate
-    # per leaf: |port - JAX f32| <= 5 |JAX f32 - JAX f64| + 1e-4 (1 +
-    # |JAX f64|max): the port's float32 and the JAX package's float32 are
-    # two float32 roundings of one float64 trajectory, and over 200 ticks
-    # of stiff penalty contact their spread is the spread between float32
-    # and float64 (up to 1e-3 m of CoM here), not float32 epsilon
+    # (c) against the JAX package's float32 loop (B=4, one cycle), with
+    # golden_gate's per-leaf gate
     with np.load(ROOT / "tests" / "data" / "loop_golden.npz") as f:
         g = {k: f[k] for k in f.files}
     scn_g = convert.unflatten(g, "scn", sweep.Scenario, dev)
     scn_g = sweep.Scenario(*(v.to(f32) for v in scn_g))
     st_g, m_g = sweep.step_batch(cfg, scn_g, sweep.init_batch(cfg, scn_g), 1)
-    worst = (0.0, "")
-    for prefix, tree in (("state", st_g), ("metrics", m_g)):
-        for key in [k for k in g if k.startswith(f"f32.{prefix}.")]:
-            obj = tree
-            for part in key.split(".")[2:]:
-                obj = getattr(obj, part)
-            port = convert.to_numpy(obj).astype(np.float64)
-            ref32 = g[key].astype(np.float64)
-            ref64 = g["f64" + key[3:]].astype(np.float64)
-            diff = float(np.abs(port - ref32).max())
-            gate = (5.0 * float(np.abs(ref32 - ref64).max())
-                    + 1e-4 * (1.0 + float(np.abs(ref64).max())))
-            if g[key].dtype.kind in "iu":
-                gate = max(gate, 1.0)     # an MPC iteration count may flip
-            worst = max(worst, (diff / gate, key))
-            check(diff <= gate, f"{key}: port vs JAX float32 {diff:.3g} "
-                  f"> gate {gate:.3g}")
+    worst = golden_gate(g, "", {"state": st_g, "metrics": m_g})
     print(f"[loop] vs JAX float32 golden: every leaf within its gate, "
           f"worst {worst[1]} at {worst[0]:.3f} of its gate", flush=True)
 
@@ -638,7 +643,9 @@ def closed_loop(dev, card, build_spd_s):
                               t["library"][-1].launches.items()), flush=True)
 
     fac, sub = times[("factor", 64, 30, 0)], times[("sub", 64, 30, 1)]
-    return [
+    main_path = dict(cfg=cfg, scn=scn, states=states_b, metrics=metrics_b,
+                     wall=wall)
+    return main_path, [
         {"name": "spd_chol_factor", "route": "cuda", "source": src,
          "replaces": "apf_quadruped_tpu/ops/pallas_chol.py:130",
          "launches": launches["spd_chol_factor"], "max_abs_err": err_f,
@@ -997,6 +1004,370 @@ def fused_slice(dev, card, build_s, golden, compare_solve, x0, refs, x1,
     return out
 
 
+def compare_solve(solver, qp, cfg_s, warm, tag, atol, min_frac):
+    """`solver` against the plain version on the card; returns the
+    largest |du|, |dx| over the lanes compared."""
+    import torch
+
+    from apf_quadruped_tpu_torch.ops import riccati
+
+    ref = riccati.solve_stage_qp(qp, cfg_s, warm)
+    out = solver(qp, cfg_s, warm)
+    torch.cuda.synchronize()
+    agree = (out.iters == ref.iters) & (out.converged == ref.converged)
+    # u/x are compared where both converged at the same iteration: an
+    # unconverged lane stops at an arbitrary interior iterate
+    same = agree & ref.converged
+    err = torch.maximum((out.u - ref.u).abs().amax(dim=(-1, -2)),
+                        (out.x - ref.x).abs().amax(dim=(-1, -2)))[same]
+    frac = float(agree.float().mean())
+    within = float((err <= atol).float().mean())
+    conv = float(ref.converged.float().mean())
+    print(f"[kernel] {tag}: conv {conv:.3f}, iters mismatches "
+          f"{int((~agree).sum())}/{agree.numel()}, max|du|,|dx| "
+          f"{float(err.max()):.3g}, lanes beyond atol {atol:g}: "
+          f"{int((err > atol).sum())}", flush=True)
+    check(conv >= 0.99, f"{tag}: plain version converged on >= 99%")
+    check(frac >= min_frac, f"{tag}: iters/converged agree on "
+          f"{frac:.4f} of lanes (need {min_frac})")
+    check(within >= min_frac, f"{tag}: u/x within {atol} on "
+          f"{within:.4f} of lanes (need {min_frac})")
+    if min_frac < 1.0:
+        # every lane, against the float64 solution: the kernel is at
+        # most 10x as far from it as the plain version in float32
+        qp64 = qp._replace(**{f: v.double() for f, v in
+                              qp._asdict().items() if v is not None})
+        warm64 = None if warm is None else warm._replace(
+            u=warm.u.double(), z=warm.z.double(), s=warm.s.double())
+        r64 = riccati.solve_stage_qp(qp64, cfg_s, warm64)
+
+        def dist(sol):
+            return torch.maximum(
+                (sol.u.double() - r64.u).abs().amax(dim=(-1, -2)),
+                (sol.x.double() - r64.x).abs().amax(dim=(-1, -2)))[same]
+        worst = float((dist(out) - 10 * dist(ref)).max())
+        print(f"[kernel] {tag}: max over lanes of |kernel - f64| - "
+              f"10 |plain - f64| = {worst:.3g} (limit {atol:g})",
+              flush=True)
+        check(worst <= atol, f"{tag}: kernel within 10x the plain "
+              f"version's float32 error on every lane")
+    return float(err.max())
+
+
+def loop_counters():
+    """The launch counters of the closed loop's kernels, by record name."""
+    from apf_quadruped_tpu_torch.ops import cuda_chol, cuda_riccati
+
+    return {"spd_chol_factor": cuda_chol.chol_factor,
+            "spd_chol_sub": cuda_chol.chol_sub,
+            "resident_ipm": cuda_riccati.solve_stage_qp_resident}
+
+
+def zero_launches():
+    for f in loop_counters().values():
+        f.launches = 0
+
+
+def read_launches():
+    return {k: f.launches for k, f in loop_counters().items()}
+
+
+def named_leaves(prefix, tree):
+    """(dotted name, tensor) of each leaf of a NamedTuple tree."""
+    for name, value in tree._asdict().items():
+        key = f"{prefix}.{name}"
+        if hasattr(value, "_asdict"):
+            yield from named_leaves(key, value)
+        elif value is not None:
+            yield key, value
+
+
+def golden_gate(g, head, trees):
+    """Hold each leaf of `trees` ({"state": LoopState, "metrics":
+    CycleMetrics}) to the JAX package's float32 run, the golden's keys
+    "f32.<head><prefix>.<path>".  Gate per leaf: |port - JAX f32| <= 5
+    |JAX f32 - JAX f64| + 1e-4 (1 + |JAX f64|max): the port's float32 and
+    the JAX package's float32 are two float32 roundings of one float64
+    trajectory, and over 200 ticks of stiff penalty contact their spread
+    is the spread between float32 and float64, not float32 epsilon.
+    Returns the worst (diff / gate, key)."""
+    from apf_quadruped_tpu_torch import convert
+
+    worst = (0.0, "")
+    for prefix, tree in trees.items():
+        stem = f"f32.{head}{prefix}."
+        keys = [k for k in g if k.startswith(stem)]
+        check(keys, f"the golden has {stem}*")
+        for key in keys:
+            obj = tree
+            for part in key[len(stem):].split("."):
+                obj = getattr(obj, part)
+            port = convert.to_numpy(obj).astype(np.float64)
+            ref32 = g[key].astype(np.float64)
+            ref64 = g["f64" + key[3:]].astype(np.float64)
+            diff = float(np.abs(port - ref32).max())
+            gate = (5.0 * float(np.abs(ref32 - ref64).max())
+                    + 1e-4 * (1.0 + float(np.abs(ref64).max())))
+            if g[key].dtype.kind in "iu":
+                gate = max(gate, 1.0)     # an MPC iteration count may flip
+            worst = max(worst, (diff / gate, key))
+            check(diff <= gate, f"{key}: port vs JAX float32 {diff:.3g} "
+                  f"> gate {gate:.3g}")
+    return worst
+
+
+def resumable_sweep(card, main_path):
+    """Phase 15: sweep.run_resumable on phase 9(b)'s configuration and
+    scenarios, one cycle a chunk, stopped by its test hook after the first
+    chunk and resumed from the checkpoint; every final LoopState leaf and
+    every metric must equal phase 9(b)'s run bit for bit."""
+    import tempfile
+
+    import torch
+
+    from apf_quadruped_tpu_torch.runtime import sweep
+
+    cfg, scn = main_path["cfg"], main_path["scn"]
+    n, B = main_path["metrics"].com.shape[1], scn.target_xy.shape[0]
+    zero_launches()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        try:
+            sweep.run_resumable(cfg, scn, n, chunk=1, ckpt_dir=d,
+                                _crash_after=1)
+        except RuntimeError as e:
+            if "simulated preemption after 1 cycles" not in str(e):
+                raise
+        else:
+            check(False, "run_resumable stops after its first chunk")
+        killed = read_launches()
+        st, m = sweep.run_resumable(cfg, scn, n, chunk=1, ckpt_dir=d)
+        torch.cuda.synchronize()
+        sizes = {p.name: p.stat().st_size for p in Path(d).iterdir()}
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    per_chunk = [sizes[sweep.CURSOR] + sizes[f"metrics-{c:08d}.pt"]
+                 for c in range(n)]
+    print(f"[resume] {card}: run_resumable B={B}, {n} cycles, chunk 1, "
+          f"stopped after chunk 1 and resumed, in {wall:.1f} s ({n} cycles "
+          f"in {main_path['wall']:.1f} s in phase 9(b)); checkpoint bytes a "
+          f"chunk {per_chunk} (cursor {sizes[sweep.CURSOR]}); launches after "
+          f"the stop {killed}, after the resume {launches}", flush=True)
+    check(all(0 < killed[k] < launches[k] for k in launches),
+          "the stopped run and the resumed run each launched every kernel")
+    check(len(set(per_chunk)) == 1, "the bytes a chunk do not grow")
+    pairs = (list(zip(named_leaves("state", st),
+                      named_leaves("state", main_path["states"])))
+             + list(zip(named_leaves("metrics", m),
+                        named_leaves("metrics", main_path["metrics"]))))
+    differ = [(ka, a, b) for (ka, a), (_, b) in pairs
+              if a.dtype != b.dtype or not torch.equal(a, b)]
+    if differ:
+        key, a, b = differ[0]
+        print(f"[resume] first leaf that differs: {key}, max|diff| "
+              f"{float((a.double() - b.double()).abs().max()):.3g}; "
+              f"{len(differ)} of {len(pairs)} leaves differ", flush=True)
+    print(f"[resume] every one of {len(pairs)} LoopState and CycleMetrics "
+          f"leaves equal to phase 9(b)'s bit for bit: {not differ}",
+          flush=True)
+    check(not differ, "the resumed sweep equals the uninterrupted one")
+
+
+def zoo_robots(dev, card):
+    """Phase 16: the zoo robots through the `run` command's closed loop on
+    the card (flat ground, target (0, 1.5), one scenario, one cycle,
+    float32), against the JAX package's runs (tests/data/zoo_golden.npz)
+    with phase 9(c)'s per-leaf gate."""
+    import torch
+
+    from apf_quadruped_tpu_torch import __main__ as cli
+    from apf_quadruped_tpu_torch.runtime import sweep
+
+    with np.load(ROOT / "tests" / "data" / "zoo_golden.npz") as f:
+        g = {k: f[k] for k in f.files}
+    for name in ("anymal", "hyq"):
+        cfg = sweep.cli_config(robot=name)
+        zero_launches()
+        t0 = time.perf_counter()
+        st, m, _, _ = cli.run_closed_loop(cfg, target="0,1.5", cycles=1,
+                                          device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        worst = golden_gate(g, f"{name}.", {"state": st, "metrics": m})
+        print(f"[zoo] {card}: {name} (mass {cfg.robot.mass} kg), one cycle "
+              f"B=1 in {wall:.1f} s: CoM {m.com[0, -1].tolist()}, R22 "
+              f"{float(st.sim.R_wb[0, 2, 2]):.5f}, qp_converged "
+              f"{float(m.qp_converged.mean()):.4f}; launches {launches}; "
+              f"vs JAX float32 golden: every leaf within its gate, worst "
+              f"{worst[1]} at {worst[0]:.3f} of its gate", flush=True)
+        check(all(v > 0 for v in launches.values()),
+              f"{name}'s loop launched every kernel")
+
+
+def long_horizon(dev, card):
+    """Phase 17: the crawl plan's horizon, H=40 (the `run --gait crawl`
+    config), through the resident kernel at B=64 against the plain
+    version with phase 3's production gate; the kernel's time at H=40; then
+    the `bench` command once."""
+    import dataclasses
+
+    import torch
+
+    from apf_quadruped_tpu_torch import __main__ as cli
+    from apf_quadruped_tpu_torch import gait, planner, problems
+    from apf_quadruped_tpu_torch.ops import cuda_riccati, riccati
+    from apf_quadruped_tpu_torch.runtime import sweep
+
+    cfg = sweep.cli_config(gait="crawl")
+    H = cfg.mpc.horizon
+    check(H == 40, "crawl plans 40 knots")
+
+    def crawl_problem(B):
+        x0, refs = problems.bench_problem(cfg, B, seed=2, device=dev)
+        return x0, refs._replace(contacts=gait.horizon_contacts(
+            torch.full((B,), 4, dtype=torch.int32, device=dev),
+            torch.zeros(B, device=dev), cfg.mpc.dt, H,
+            torch.full((B,), cfg.gait.crawl_cycle, device=dev)))
+
+    B = 64
+    x0, refs = crawl_problem(B)
+    cuda_riccati.solve_stage_qp_resident.launches = 0
+    out = planner.plan(cfg, x0, refs)
+    torch.cuda.synchronize()
+    launched = cuda_riccati.solve_stage_qp_resident.launches
+    cfg_plain = cfg.replace(mpc=dataclasses.replace(cfg.mpc,
+                                                    backend="riccati"))
+    ref = planner.plan(cfg_plain, x0, refs)
+    agree = ((out.sol.iters == ref.sol.iters)
+             & (out.sol.converged == ref.sol.converged))
+    df = float((out.forces - ref.forces).abs()[agree].max())
+    ftol = 1e-3 * max(1.0, float(ref.forces.abs().max()))
+    print(f"[h40] crawl plan B={B} H={H}: launches {launched}, converged "
+          f"{float(out.sol.converged.float().mean()):.4f}, mean iters "
+          f"{float(out.sol.iters.float().mean()):.3f}; vs the plain plan: "
+          f"converged/iters agree on {float(agree.float().mean()):.4f} of "
+          f"lanes, max|dforce| {df:.3g} (tol {ftol:.3g})", flush=True)
+    check(launched == 1, "the H=40 plan launched the resident kernel")
+    check(float(agree.float().mean()) >= 0.995 and df <= ftol,
+          "the H=40 plan agrees with the plain plan")
+    scale = max(1.0, float(ref.forces.abs().max()))
+    compare_solve(cuda_riccati.solve_stage_qp_resident,
+                  planner.stage_qp(cfg, x0, refs), cfg.solver, None,
+                  f"stage QP of the crawl plan B={B} H={H} (in units of "
+                  f"its largest force)", 2e-4 * scale, 0.995)
+    for Bt in (64, 2048):
+        qp = planner.stage_qp(cfg, *crawl_problem(Bt))
+        ms_k = event_ms(lambda: cuda_riccati.solve_stage_qp_resident(
+            qp, cfg.solver), reps=20)
+        ms_p = event_ms(lambda: riccati.solve_stage_qp(qp, cfg.solver),
+                        reps=3)
+        print(f"[h40] {card}: resident IPM stage-QP solve B={Bt} H={H} "
+              f"crawl: kernel {ms_k:.4f} ms, plain {ms_p:.3f} ms (CUDA "
+              f"events)", flush=True)
+    print("[bench] the bench command:", flush=True)
+    cli.main(["bench"])
+
+
+def sharded_sweeps(dev, card):
+    """Phase 18: run_sharded over ["cuda:0"] and ["cuda:0", "cuda:0"] at
+    tests/test_sweep.py's small config (B=8, one cycle) against run_batch,
+    then once more inside a world-size-1 NCCL process group, where the
+    gather and the stats' mean run as collectives on the card."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from apf_quadruped_tpu_torch.config import (EngineConfig, GaitConfig,
+                                                MpcConfig, SimConfig,
+                                                SolverConfig, WbcConfig)
+    from apf_quadruped_tpu_torch.parallel import distributed
+    from apf_quadruped_tpu_torch.runtime import sweep
+
+    cfg = EngineConfig(gait=GaitConfig(trot_cycle=0.1),
+                       mpc=MpcConfig(horizon=4, dt=0.025),
+                       sim=SimConfig(substeps=1, terrain_res=16),
+                       solver=SolverConfig(iters=5),
+                       wbc=WbcConfig(slack_weight_trot=1e6))
+    B = 8
+    scn = sweep.random_scenarios(cfg, B, seed=3, device=dev)
+    d0 = "cuda:0" if dev.type == "cuda" else dev.type
+    ref = sweep.run_batch(cfg, scn, 1)
+
+    def run(tag, devices):
+        zero_launches()
+        res, stats = sweep.run_sharded(cfg, scn, 1, devices=devices)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        pairs = list(zip(named_leaves("result", res),
+                         named_leaves("result", ref)))
+        bitwise = all(torch.equal(a, b) for (_, a), (_, b) in pairs)
+        dcom = float((res.final_com - ref.final_com).abs().max())
+        means = {"goal_dist": res.goal_dist.mean(),
+                 "fell": res.fell.float().mean(),
+                 "qp_converged": res.qp_converged.mean(),
+                 "slip_frac": res.slip_frac.mean()}
+        dstat = max(float((stats[k] - v).abs()) for k, v in means.items())
+        print(f"[shard] {tag}: run_sharded B={B} over {devices}: equal to "
+              f"run_batch bit for bit {bitwise}, max|dfinal_com| {dcom:.3g} "
+              f"(gate 0.05), fell {int(res.fell.sum())} (run_batch "
+              f"{int(ref.fell.sum())}); stats "
+              f"{json.dumps({k: float(v) for k, v in stats.items()})}, "
+              f"max |stat - mean of the gathered result| {dstat:.3g}; "
+              f"launches {launches}", flush=True)
+        check(all(v > 0 for v in launches.values()),
+              f"{tag}: the sharded run launched every kernel")
+        check(res.final_com.shape == (B, 3), f"{tag}: the whole batch")
+        # tests/test_sweep.py's gate: a split changes float32 reductions,
+        # which this small config's closed loop carries to cm
+        check(dcom <= 0.05 and int(res.fell.sum()) == int(ref.fell.sum()),
+              f"{tag}: the sharded run agrees with run_batch")
+        check(dstat <= 1e-5, f"{tag}: the stats are the means")
+        if len(devices) == 1:
+            check(bitwise, f"{tag}: one shard is run_batch")
+        return res, stats
+
+    run("one shard", [d0])
+    res2, stats2 = run("two shards", [d0, d0])
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    calls = {"all_gather": 0, "all_reduce": 0}
+    real = {k: getattr(dist, k) for k in calls}
+
+    def counted(name):
+        def fn(*args, **kw):
+            tensors = args[0] if name == "all_gather" else [args[0]]
+            check(all(t.device.type == dev.type for t in tensors),
+                  f"{name} on the card")
+            calls[name] += 1
+            return real[name](*args, **kw)
+        return fn
+
+    distributed.ensure_initialized(f"127.0.0.1:{port}", 1, 0)
+    try:
+        check(dist.get_backend() == ("nccl" if dev.type == "cuda"
+                                     else "gloo"), "the group runs NCCL")
+        for k in calls:
+            setattr(dist, k, counted(k))
+        res3, stats3 = run("two shards, NCCL group of 1", [d0, d0])
+    finally:
+        for k, f in real.items():
+            setattr(dist, k, f)
+        dist.destroy_process_group()
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        named_leaves("r", res3), named_leaves("r", res2)))
+    print(f"[shard] NCCL group of 1: collectives on the card {calls}; "
+          f"result equal to the group-less run bit for bit {same}",
+          flush=True)
+    check(calls["all_gather"] > 0 and calls["all_reduce"] > 0,
+          "the gather and the mean ran as NCCL collectives")
+    check(same and all(torch.equal(stats3[k], stats2[k]) for k in stats2),
+          "the group of 1 changes nothing")
+
+
 def main():
     import numpy as np
     import torch
@@ -1055,51 +1426,6 @@ def main():
         err = compare_solve(cuda_riccati.solve_stage_qp_resident, qp, cfg_s,
                             warm, tag, atol, min_frac)
         max_err = max(max_err, err)
-
-    def compare_solve(solver, qp, cfg_s, warm, tag, atol, min_frac):
-        """`solver` against the plain version on the card; returns the
-        largest |du|, |dx| over the lanes compared."""
-        ref = riccati.solve_stage_qp(qp, cfg_s, warm)
-        out = solver(qp, cfg_s, warm)
-        torch.cuda.synchronize()
-        agree = (out.iters == ref.iters) & (out.converged == ref.converged)
-        # u/x are compared where both converged at the same iteration: an
-        # unconverged lane stops at an arbitrary interior iterate
-        same = agree & ref.converged
-        err = torch.maximum((out.u - ref.u).abs().amax(dim=(-1, -2)),
-                            (out.x - ref.x).abs().amax(dim=(-1, -2)))[same]
-        frac = float(agree.float().mean())
-        within = float((err <= atol).float().mean())
-        conv = float(ref.converged.float().mean())
-        print(f"[kernel] {tag}: conv {conv:.3f}, iters mismatches "
-              f"{int((~agree).sum())}/{agree.numel()}, max|du|,|dx| "
-              f"{float(err.max()):.3g}, lanes beyond atol {atol:g}: "
-              f"{int((err > atol).sum())}", flush=True)
-        check(conv >= 0.99, f"{tag}: plain version converged on >= 99%")
-        check(frac >= min_frac, f"{tag}: iters/converged agree on "
-              f"{frac:.4f} of lanes (need {min_frac})")
-        check(within >= min_frac, f"{tag}: u/x within {atol} on "
-              f"{within:.4f} of lanes (need {min_frac})")
-        if min_frac < 1.0:
-            # every lane, against the float64 solution: the kernel is at
-            # most 10x as far from it as the plain version in float32
-            qp64 = qp._replace(**{f: v.double() for f, v in
-                                  qp._asdict().items() if v is not None})
-            warm64 = None if warm is None else warm._replace(
-                u=warm.u.double(), z=warm.z.double(), s=warm.s.double())
-            r64 = riccati.solve_stage_qp(qp64, cfg_s, warm64)
-
-            def dist(sol):
-                return torch.maximum(
-                    (sol.u.double() - r64.u).abs().amax(dim=(-1, -2)),
-                    (sol.x.double() - r64.x).abs().amax(dim=(-1, -2)))[same]
-            worst = float((dist(out) - 10 * dist(ref)).max())
-            print(f"[kernel] {tag}: max over lanes of |kernel - f64| - "
-                  f"10 |plain - f64| = {worst:.3g} (limit {atol:g})",
-                  flush=True)
-            check(worst <= atol, f"{tag}: kernel within 10x the plain "
-                  f"version's float32 error on every lane")
-        return float(err.max())
 
     # B=4: the JAX suite's own 5e-5 gate; B=130: its lane-boundary test's
     # 1e-4 (tests/test_pallas_riccati.py), f32 rounding over more lanes;
@@ -1272,7 +1598,7 @@ def main():
           f"against {ms_k:.3f} ms, {100 * b_res[0] / ms_k:.2f}% of bound",
           flush=True)
 
-    chol = closed_loop(dev, card, build_s["spd_chol"])
+    main_path, chol = closed_loop(dev, card, build_s["spd_chol"])
     fused = fused_slice(dev, card, build_s, golden, compare_solve, x0, refs,
                         x1, refs1, ref, rate_k)
     # the fused plan's kernels run every iteration: the device time of one
@@ -1283,6 +1609,11 @@ def main():
           f"{ms_all / n_it:.4f} ms (phase 6, every lane running {n_it}), "
           f"fused passes {fused_ms / n_it:.4f} ms ({fused_ms:.3f} ms of "
           f"device time a fused plan)", flush=True)
+
+    resumable_sweep(card, main_path)
+    zoo_robots(dev, card)
+    long_horizon(dev, card)
+    sharded_sweeps(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "resident_ipm", "route": "cuda",

@@ -20,7 +20,9 @@ import pytest
 import torch
 
 from apf_quadruped_tpu_torch import convert, planner, problems
-from apf_quadruped_tpu_torch.config import EngineConfig, MpcConfig, SolverConfig
+from apf_quadruped_tpu_torch.config import (EngineConfig, GaitConfig,
+                                            MpcConfig, SimConfig,
+                                            SolverConfig, WbcConfig)
 from apf_quadruped_tpu_torch.ops import cuda_riccati
 from apf_quadruped_tpu_torch.ops import riccati as tr
 
@@ -94,12 +96,12 @@ def test_kernel_over_block_edge(rng, dev):
 # The kernel stages each knot's records into a two-slot ring while it
 # works on the knot before: the cases below are those a ring can break.
 
-@pytest.mark.parametrize("H", [1, 2, 7, 30])
+@pytest.mark.parametrize("H", [1, 2, 7, 30, 40])
 def test_kernel_ring_over_horizons(rng, dev, H):
     """Production widths (13 states, 12 inputs, 24 rows) with 6 state rows
     and the accel rows: one knot (no copy in flight behind it), two (each
     slot once), an odd horizon (the sweeps end on the other slot than they
-    start) and a long one."""
+    start) and long ones (40: the crawl plan's)."""
     qp = _qp(rng, dev, mc=6, acc=True, H=H, a_noise=0.03)
     _assert_close(cuda_riccati.solve_stage_qp_resident(qp, CFG),
                   tr.solve_stage_qp(qp, CFG))
@@ -149,9 +151,10 @@ def test_kernel_every_iteration_without_tolerance(rng, dev):
     _assert_close(out, tr.solve_stage_qp(qp, cfg))
 
 
-@pytest.mark.parametrize("H", [10, 30])
+@pytest.mark.parametrize("H", [10, 30, 40])
 def test_kernel_plan_horizons(dev, H):
-    """The BASELINE horizons beside H=20 on the planner's own stage QP with
+    """The BASELINE horizons beside H=20, and the crawl plan's 40, on the
+    planner's own stage QP with
     the base_box state rows and the base_acc accel rows: the iterations of
     the plain version on every lane, u (forces of O(100) N) within the
     plan gate, 1e-3 of the largest force."""
@@ -454,7 +457,6 @@ def test_solve_qp_kernel_route(rng, dev):
 def test_closed_loop_runs_through_the_kernels(dev):
     """A short closed-loop cycle (20 ticks) on the card launches the SPD
     kernels and the resident IPM and stays finite and upright."""
-    from apf_quadruped_tpu_torch.config import GaitConfig
     from apf_quadruped_tpu_torch.runtime import sweep
     cfg = sweep.cli_config()
     cfg = cfg.replace(gait=GaitConfig(mode="trot", trot_cycle=0.05))
@@ -470,6 +472,53 @@ def test_closed_loop_runs_through_the_kernels(dev):
     assert after[1] > before[1] and after[2] == before[2] + 1
     assert bool(torch.isfinite(res.final_com).all())
     assert bool((res.upright > 0.98).all())
+
+
+def _small_cfg():
+    """tests/test_sweep.py's small plumbing config for the sweep drivers."""
+    return EngineConfig(gait=GaitConfig(trot_cycle=0.1),
+                        mpc=MpcConfig(horizon=4, dt=0.025),
+                        sim=SimConfig(substeps=1, terrain_res=16),
+                        solver=SolverConfig(iters=5),
+                        wbc=WbcConfig(slack_weight_trot=1e6))
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [x for v in tree if v is not None for x in _leaves(v)]
+
+
+def test_resumable_sweep_survives_kill_on_the_card(dev, tmp_path):
+    """run_resumable stopped after its first chunk and resumed from the
+    checkpoint equals the uninterrupted run bit for bit on the card."""
+    from apf_quadruped_tpu_torch.runtime import sweep
+    cfg = _small_cfg()
+    scn = sweep.random_scenarios(cfg, 4, seed=7, use_native=False,
+                                 device=dev)
+    ref = sweep.run_resumable(cfg, scn, 4, chunk=2)
+    with pytest.raises(RuntimeError, match="simulated preemption"):
+        sweep.run_resumable(cfg, scn, 4, chunk=2, ckpt_dir=tmp_path,
+                            _crash_after=1)
+    out = sweep.run_resumable(cfg, scn, 4, chunk=2, ckpt_dir=tmp_path)
+    for a, b in zip(_leaves(out), _leaves(ref)):
+        assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_sharded_sweep_on_one_card(dev):
+    """run_sharded over ["cuda:0", "cuda:0"] (two halves of the batch on
+    one card) against run_batch: the whole batch gathered, the stats its
+    means, the final CoM within tests/test_sweep.py's gate."""
+    from apf_quadruped_tpu_torch.runtime import sweep
+    cfg = _small_cfg()
+    scn = sweep.random_scenarios(cfg, 8, seed=3, use_native=False,
+                                 device=dev)
+    ref = sweep.run_batch(cfg, scn, 1)
+    res, stats = sweep.run_sharded(cfg, scn, 1, devices=["cuda:0"] * 2)
+    assert res.final_com.shape == (8, 3) and res.final_com.is_cuda
+    assert float((res.final_com - ref.final_com).abs().max()) <= 0.05
+    assert int(res.fell.sum()) == int(ref.fell.sum())
+    torch.testing.assert_close(stats["goal_dist"], res.goal_dist.mean())
 
 
 def test_spd_route_above_kernel_size_launches_nothing(rng, dev):

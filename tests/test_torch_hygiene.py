@@ -6,11 +6,11 @@
     port names that directory; the scripts that run on the GPU machine
     import neither;
   * the port's copies of the JAX package's pure-Python files (config,
-    DogBot constants) agree with them;
+    DogBot constants, the robot zoo, the plots) agree with them;
   * the entry points run on the card unless asked for the CPU, and raise
     without one;
   * without nvcc, building a CUDA kernel raises instead of returning;
-  * solver options and sweep entry points that are not ported raise.
+  * the one solver option the port leaves out (stage_bf16) raises.
 """
 
 import ast
@@ -26,7 +26,8 @@ import pytest
 import torch
 
 from apf_quadruped_tpu_torch import _kernels, planner, problems
-from apf_quadruped_tpu_torch.config import EngineConfig, MpcConfig, SolverConfig
+from apf_quadruped_tpu_torch.config import (EngineConfig, GaitConfig, MpcConfig,
+                                            SimConfig, SolverConfig)
 from apf_quadruped_tpu_torch.ops import riccati
 
 torch.set_num_threads(1)
@@ -56,6 +57,13 @@ SLICE = ["apf_quadruped_tpu_torch", "apf_quadruped_tpu_torch.config",
          "apf_quadruped_tpu_torch.runtime.loop",
          "apf_quadruped_tpu_torch.runtime.sweep",
          "apf_quadruped_tpu_torch.runtime.native",
+         "apf_quadruped_tpu_torch.runtime.checkpoint",
+         "apf_quadruped_tpu_torch.runtime.profiling",
+         "apf_quadruped_tpu_torch.runtime.viz",
+         "apf_quadruped_tpu_torch.models.zoo",
+         "apf_quadruped_tpu_torch.parallel",
+         "apf_quadruped_tpu_torch.parallel.mesh",
+         "apf_quadruped_tpu_torch.parallel.distributed",
          "apf_quadruped_tpu_torch.__main__"]
 
 
@@ -127,24 +135,6 @@ def test_kernel_loader_raises_without_nvcc(monkeypatch, tmp_path, loader):
     assert not list(tmp_path.rglob("*.so"))
 
 
-@pytest.mark.parametrize("driver,item", [("run_resumable", "15"),
-                                         ("step_batch_sharded", "17"),
-                                         ("run_sharded", "17")])
-def test_unported_sweep_drivers_raise(driver, item):
-    from apf_quadruped_tpu_torch.runtime import sweep
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item "
-                       f"{item}"):
-        getattr(sweep, driver)(sweep.cli_config(), None, 1)
-
-
-@pytest.mark.parametrize("argv", [["run"], ["bench"], ["sweep", "--sharded"],
-                                  ["sweep", "--checkpoint", "ckpt"]])
-def test_unported_cli_commands_raise(argv):
-    from apf_quadruped_tpu_torch.__main__ import main
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 16"):
-        main(argv)
-
-
 def test_sweep_robot_outside_the_choices_is_an_argparse_error(capsys):
     """--robot takes the JAX CLI's choices (dogbot, anymal, hyq): a typo
     exits with argparse's code 2 before anything runs."""
@@ -153,13 +143,6 @@ def test_sweep_robot_outside_the_choices_is_an_argparse_error(capsys):
         main(["sweep", "--robot", "dogbo", "--device", "cpu"])
     assert exc.value.code == 2
     assert "invalid choice: 'dogbo'" in capsys.readouterr().err
-
-
-@pytest.mark.parametrize("robot", ["anymal", "hyq"])
-def test_sweep_zoo_robots_are_not_ported(robot):
-    from apf_quadruped_tpu_torch.__main__ import main
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 16"):
-        main(["sweep", "--robot", robot, "--device", "cpu"])
 
 
 def test_spd_solve_on_cpu_takes_the_plain_version():
@@ -260,6 +243,47 @@ def test_dogbot_copy_matches_jax():
         jdog.default_joint_angles(robot)), atol=1e-6)
 
 
+def _body(path, replace=()):
+    """The module's code without its docstring, as an AST dump, after
+    replacing the string constants `replace` names."""
+    tree = ast.parse(path.read_text())
+    body = tree.body[1:] if isinstance(tree.body[0], ast.Expr) else tree.body
+    for node in ast.walk(ast.Module(body=body, type_ignores=[])):
+        if isinstance(node, ast.Constant) and node.value in dict(replace):
+            node.value = dict(replace)[node.value]
+    return ast.dump(ast.Module(body=body, type_ignores=[]))
+
+
+@pytest.mark.parametrize("module,replace", [
+    ("models/zoo.py", ()),
+    ("runtime/viz.py", (("apf_quadruped_tpu run",
+                         "apf_quadruped_tpu_torch run"),))])
+def test_pure_python_copies_match_jax(module, replace):
+    """models/zoo.py and runtime/viz.py are copies of the JAX package's:
+    the same code apart from the docstring (and viz's default title,
+    which names the port)."""
+    assert _body(ROOT / "apf_quadruped_tpu_torch" / module) == \
+        _body(ROOT / "apf_quadruped_tpu" / module, replace)
+
+
+def test_zoo_copy_gives_the_jax_configs():
+    """Every zoo model, its RobotConfig and its closed-loop EngineConfig
+    equal the JAX package's."""
+    import numpy as np
+
+    from apf_quadruped_tpu.models import zoo as jzoo
+    from apf_quadruped_tpu_torch.models import zoo as tzoo
+    assert set(tzoo.ZOO) == set(jzoo.ZOO)
+    for name in tzoo.ZOO:
+        tm, jm = tzoo.ZOO[name](), jzoo.ZOO[name]()
+        for a, b in zip(tm, jm):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        assert dataclasses.asdict(tzoo.robot_config_for(tm)) == \
+            dataclasses.asdict(jzoo.robot_config_for(jm))
+        assert dataclasses.asdict(tzoo.engine_config_for(name)) == \
+            dataclasses.asdict(jzoo.engine_config_for(name))
+
+
 _JAX_DIR = re.compile(r"(?<![\w.])apf_quadruped_tpu(?![\w])")
 
 
@@ -303,16 +327,24 @@ def test_native_generator_builds_inside_the_port():
 
 
 def _entry_points():
+    from apf_quadruped_tpu_torch import __main__ as cli
     from apf_quadruped_tpu_torch.runtime import loop, sweep
     cfg = EngineConfig(mpc=MpcConfig(horizon=4))
     return {"bench_problem": lambda **kw: problems.bench_problem(cfg, 2, **kw),
             "random_scenarios": lambda **kw: sweep.random_scenarios(
                 cfg, 2, use_native=False, **kw),
-            "loop.init": lambda **kw: loop.init(cfg, 2, **kw)}
+            "loop.init": lambda **kw: loop.init(cfg, 2, **kw),
+            "run_closed_loop": lambda **kw: cli.run_closed_loop(
+                cfg.replace(gait=GaitConfig(trot_cycle=0.0125),
+                            sim=SimConfig(substeps=1, terrain_res=16)),
+                cycles=1, **kw)[0],
+            "bench_rate": lambda **kw: cli.bench_rate(
+                B=2, bursts=1, reps=1, **kw).values()}
 
 
 @pytest.mark.parametrize("entry", ["bench_problem", "random_scenarios",
-                                   "loop.init"])
+                                   "loop.init", "run_closed_loop",
+                                   "bench_rate"])
 def test_entry_points_default_to_the_card(entry):
     """Without a device the entry points ask for the card: without one
     they raise and name the CPU option; with device='cpu' they run."""
@@ -322,8 +354,12 @@ def test_entry_points_default_to_the_card(entry):
                     "entry points there")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
-    leaves = [v for v in call(device="cpu") if isinstance(v, torch.Tensor)]
-    assert leaves and all(v.device.type == "cpu" for v in leaves)
+    out = call(device="cpu")
+    leaves = [v for v in out if isinstance(v, torch.Tensor)]
+    if entry == "bench_rate":
+        assert "solves/s" in out
+    else:
+        assert leaves and all(v.device.type == "cpu" for v in leaves)
 
 
 def test_sweep_command_needs_the_card_or_device_cpu():
@@ -332,3 +368,28 @@ def test_sweep_command_needs_the_card_or_device_cpu():
         pytest.skip("a CUDA device is present; the command would run there")
     with pytest.raises(RuntimeError, match="--device cpu"):
         main(["sweep", "--batch", "2", "--cycles", "1"])
+
+
+@pytest.mark.parametrize("argv", [["run", "--cycles", "1"], ["bench"]])
+def test_run_and_bench_commands_need_the_card_or_device_cpu(argv):
+    from apf_quadruped_tpu_torch.__main__ import main
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the command would run there")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        main(argv)
+
+
+@pytest.mark.parametrize("devices", [None, ["cuda:0", "cuda:0"]])
+def test_sharded_sweep_defaults_to_the_cards(devices):
+    """run_sharded and run_resumable(devices=...) split over the CUDA
+    cards unless given CPU devices: without a card they raise."""
+    from apf_quadruped_tpu_torch.runtime import sweep
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; chip_smoke.py drives the "
+                    "sharded sweep there")
+    cfg = EngineConfig(mpc=MpcConfig(horizon=4))
+    scn = sweep.random_scenarios(cfg, 2, use_native=False, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sweep.run_sharded(cfg, scn, 1, devices=devices)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sweep.run_resumable(cfg, scn, 1, devices=devices or ["cuda"])
