@@ -8,7 +8,9 @@ both packages the same numpy inputs.
 The port does all that the JAX package does: the MPC plan path
 (`planner.plan`, every backend), the batched closed loop
 (`runtime/sweep.run_batch` -> `runtime/loop.run_cycle`), resumable and
-sharded sweeps, the zoo robots and the whole command line.
+sharded sweeps, the zoo robots and the whole command line, with every
+SolverConfig option (stage_bf16: A and B at bf16 in the resident and
+fused kernels, which widen them to float32 on chip).
     config.py, models/dogbot.py, models/zoo.py, runtime/native.py,
     runtime/viz.py — the port's own copies of the JAX package's
                   pure-Python files
@@ -17,7 +19,8 @@ sharded sweeps, the zoo robots and the whole command line.
                   path, and the plain version of the CUDA kernel)
     ops/cuda_riccati.py + csrc/resident_ipm.cu, csrc/fused_riccati.cu —
                   the resident IPM as one hand-written CUDA kernel for
-                  Hopper (sm_90a), and the fused IPM around three kernels
+                  Hopper (sm_90a), and the fused IPM around three kernels,
+                  each with a float32 and a bf16-storage instance
     planner.py — the plan: Riccati backends and the condensed dense QP
     ops/chol.py, ops/cuda_chol.py + csrc/spd_chol.cu — the batched SPD
                   factor / substitution / factor-and-solve: CUDA kernels,

@@ -75,13 +75,22 @@ class IpmArgs(ctypes.Structure):
 
 
 @functools.cache
-def resident_ipm() -> ctypes.CDLL:
-    """The resident Riccati IPM library (csrc/resident_ipm.cu), built and
-    loaded once per process."""
-    lib = ctypes.CDLL(str(build("resident_ipm", [CSRC / "resident_ipm.cu"])))
+def resident_ipm(src: Path = CSRC / "resident_ipm.cu",
+                 name: str = "resident_ipm") -> ctypes.CDLL:
+    """The resident Riccati IPM library (csrc/resident_ipm.cu: the float32
+    and the bf16-storage instance, or another version of it at `src`,
+    built as `name`), built and loaded once per process."""
+    lib = ctypes.CDLL(str(build(name, [src])))
     lib.resident_ipm_launch.argtypes = [ctypes.POINTER(IpmArgs),
                                         ctypes.c_void_p]
     lib.resident_ipm_launch.restype = ctypes.c_int
+    # (args, the (B, H, AB_REC) bf16 blocks of A and B', stream); absent
+    # from a tree from before the bf16 instance
+    bf16 = getattr(lib, "resident_ipm_bf16_launch", None)
+    if bf16 is not None:
+        bf16.argtypes = [ctypes.POINTER(IpmArgs), ctypes.c_void_p,
+                         ctypes.c_void_p]
+        bf16.restype = ctypes.c_int
     lib.resident_ipm_layout.argtypes = [ctypes.POINTER(ctypes.c_int),
                                         ctypes.c_int]
     lib.resident_ipm_layout.restype = ctypes.c_int
@@ -111,17 +120,19 @@ def spd_chol(src: Path = CSRC / "spd_chol.cu",
 def fused_riccati(src: Path = CSRC / "fused_riccati.cu",
                   name: str = "fused_riccati") -> ctypes.CDLL:
     """The fused Riccati passes' library (csrc/fused_riccati.cu: rollout,
-    factor and vector kernels, or another version of it at `src`, built as
-    `name`), built and loaded once per process."""
+    factor and vector kernels, each with float32 and bf16 storage of A and
+    B, or another version of it at `src`, built as `name`), built and
+    loaded once per process."""
     lib = ctypes.CDLL(str(build(name, [src])))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     dims = [i32] * 5 + [ptr]                      # B, H, nx, nu, m, stream
-    lib.fused_rollout_launch.argtypes = [ptr] * 12 + dims
-    lib.fused_factor_launch.argtypes = [ptr] * 9 + dims
-    lib.fused_vector_launch.argtypes = [ptr] * 10 + dims
-    for fn in (lib.fused_rollout_launch, lib.fused_factor_launch,
-               lib.fused_vector_launch):
-        fn.restype = i32
+    for store in ("", "_bf16"):
+        for name_, n in (("rollout", 12), ("factor", 9), ("vector", 10)):
+            fn = getattr(lib, f"fused_{name_}{store}_launch", None)
+            if fn is None and store:   # a tree from before the bf16 kernels
+                continue
+            fn.argtypes = [ptr] * n + dims
+            fn.restype = i32
     lib.fused_riccati_limits.argtypes = [ctypes.POINTER(i32)] * 4
     lib.fused_riccati_limits.restype = None
     return lib
@@ -140,13 +151,16 @@ def fused_riccati_limits() -> tuple[int, int, int, int]:
 # the names of resident_ipm_layout's values, in its order
 _IPM_LAYOUT = ("NX", "NU", "M_MAX", "MC_MAX", "IN_REC", "IN_A", "IN_BT",
                "IN_Q", "IN_MASK", "IN_H", "IN_CX", "IN_MX", "ST_REC", "ST_U",
-               "ST_X", "ST_Z", "ST_S", "ST_ZX", "ST_SX", "SC_REC")
+               "ST_X", "ST_Z", "ST_S", "ST_ZX", "ST_SX", "SC_REC", "AB_A",
+               "AB_BT", "AB_REC", "AB_IN0")
 
 
 @functools.cache
 def resident_ipm_layout() -> dict[str, int]:
     """The resident kernel's compiled widths and limits (NX, NU, M_MAX,
-    MC_MAX) and its per-knot record layout (offsets in floats)."""
+    MC_MAX), its per-knot record layout (offsets in floats) and the bf16
+    instance's: its block of A and B' (AB_A, AB_BT, AB_REC, in bf16
+    elements) and the first field its float32 record holds (AB_IN0)."""
     vals = (ctypes.c_int * len(_IPM_LAYOUT))()
     n = resident_ipm().resident_ipm_layout(vals, len(_IPM_LAYOUT))
     if n != len(_IPM_LAYOUT):

@@ -287,8 +287,10 @@ class SolverConfig:
     # solves.  The resident and fused backends have their own factor
     # kernels and ignore it.
     use_pallas: bool = False
-    # JAX package only (its fused Riccati backend): store the per-knot
-    # (A, B) stage linearizations in bfloat16.  The port raises on it.
+    # resident and fused backends: store the per-knot (A, B) stage
+    # linearizations in bfloat16 on the device, widened to float32 inside
+    # the kernels; all the KKT algebra stays float32.  The scan, use_pallas
+    # and condensed ignore it, as in the JAX package.
     stage_bf16: bool = False
 
 

@@ -76,6 +76,20 @@
 //    and column `lane` of L_k, so (L L') kff = g is 2 x 12 steps of one
 //    shuffle and one FMA; kff stays in shared memory (H x 12 floats a warp)
 //    for the forward sweep.
+//  - bf16 storage of A and B (SolverConfig.stage_bf16; the TPU kernels
+//    widen bf16 A/B on load, pallas_riccati.py:144-159, 193-194, 247-267):
+//    each kernel has an instance for __nv_bfloat16 A and B, the rest
+//    float32.  In device memory each knot's A_k and B_k start on 16 bytes
+//    (their nx nx and nx nu elements padded to a multiple of 8, which the
+//    wrapper lays out; at nx = 13 an unpadded A_k would start on 2 bytes
+//    at every odd k, which no cp.async takes).  The factor and vector
+//    passes stage both by 16-byte cp.async into a bf16 area of the slot,
+//    in the same group as the knot's other inputs, and after the wait
+//    widen them (the factor transposing, as its float32 staging does) into
+//    the slot's float32 frames in one warp pass; the rollout loads a
+//    knot's bf16 pairs into registers as 32-bit words (half the loads of
+//    its float32 instance) and widens them as it stores the knot into its
+//    slot.  Every product then reads float32, as in the float32 instances.
 //
 // What bounds them on the H100: each pass moves 70-120 MB at B = 2048,
 // H = 20 (20-35 us at 3.35 TB/s, which sets their bound: the operations
@@ -89,8 +103,11 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 // -fPIC, without --use_fast_math.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -125,6 +142,18 @@ __device__ __forceinline__ void cp4(float* dst, const float* src) {
                : "memory");
 #else
   *dst = *src;
+#endif
+}
+// 16 bytes likewise (L2 only): a bf16 knot's A_k and B_k, 16-byte aligned
+__device__ __forceinline__ void cp16(void* dst, const void* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+#else
+  for (int j = 0; j < 4; ++j)
+    static_cast<float*>(dst)[j] = static_cast<const float*>(src)[j];
 #endif
 }
 __device__ __forceinline__ void cp_commit() {
@@ -179,6 +208,54 @@ __device__ __forceinline__ void stage_mat(float* dst, const float* src,
 __device__ __forceinline__ void stage_vec(float* dst, const float* src, int n,
                                           int lane) {
   if (lane < n) cp4(dst + lane, src + lane);
+}
+
+// ---- bf16 storage of A and B -----------------------------------------------
+// knot kk's r x c bf16 matrix in device memory: knots start on 16 bytes,
+// their r c elements padded to a multiple of 8
+__device__ __forceinline__ const __nv_bfloat16* bf16_knot(
+    const __nv_bfloat16* base, size_t kk, int r, int c) {
+  return base + kk * (size_t)((r * c + 7) & ~7);
+}
+// the bf16 area a slot carries for its knot's A_k and B_k: A at element 0,
+// B at AB_B, each at most the padded 13 x 13 and 13 x 12
+constexpr int AB_B = 176, AB_ELEMS = 336;
+template <class T>
+__host__ __device__ constexpr int ab_floats() {
+  return std::is_same<T, float>::value ? 0 : AB_ELEMS / 2;
+}
+// stage knot kk's bf16 A_k and B_k whole into the area, lanes over their
+// 16-byte pieces (at most 22 and 20)
+__device__ __forceinline__ void stage_ab16(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* A,
+                                           const __nv_bfloat16* Bm, size_t kk,
+                                           int nx, int nu, int lane) {
+  const int na = (nx * nx + 7) / 8, nb = (nx * nu + 7) / 8;
+  if (lane < na) cp16(dst + 8 * lane, bf16_knot(A, kk, nx, nx) + 8 * lane);
+  if (lane < nb)
+    cp16(dst + AB_B + 8 * lane, bf16_knot(Bm, kk, nx, nu) + 8 * lane);
+}
+// widen the staged rows x cols bf16 matrix at src into dst as stage_mat
+// places a float32 one (transposed for TR); entries outside rows x cols
+// are not written
+template <int R, int C, int DS, bool TR>
+__device__ __forceinline__ void widen_mat(float* dst, const __nv_bfloat16* src,
+                                          int rows, int cols, int lane) {
+  if (rows == R && cols == C) {   // the production widths: no division
+#pragma unroll
+    for (int t = 0; t < (R * C + 31) / 32; ++t) {
+      const int e = t * 32 + lane;
+      if (e < R * C) {
+        const int i = e / C, j = e % C;
+        dst[TR ? j * DS + i : i * DS + j] = __bfloat162float(src[e]);
+      }
+    }
+  } else {
+    for (int e = lane; e < rows * cols; e += 32) {
+      const int i = e / cols, j = e % cols;
+      dst[TR ? j * DS + i : i * DS + j] = __bfloat162float(src[e]);
+    }
+  }
 }
 
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -310,10 +387,16 @@ __device__ void load_pass_consts(PassConsts<MP>& c, const float* G,
 // slot) stages knot k's inputs by cp.async; knot k + 1 (k - 1) is
 // requested into the other slot of the ring before the warp starts on
 // knot k.  The first __syncwarp of a step orders the previous step's
-// shared-memory work before the slot it read is staged again.
-template <class Request, class Body>
+// shared-memory work before the slot it read is staged again.  land(slot),
+// where given, runs on a knot's slot once it has arrived, before body
+// (the bf16 instances' widening).
+struct NoLand {
+  __device__ void operator()(float*) const {}
+};
+template <class Request, class Body, class Land = NoLand>
 __device__ __forceinline__ void sweep(int H, bool fwd, float* ring, int slot,
-                                      Request request, Body body) {
+                                      Request request, Body body,
+                                      Land land = Land()) {
   auto knot = [&](int step) { return fwd ? step : H - 1 - step; };
   __syncwarp();
   request(knot(0), ring);
@@ -328,6 +411,10 @@ __device__ __forceinline__ void sweep(int H, bool fwd, float* ring, int slot,
       cp_wait<0>();
     }
     __syncwarp();
+    if constexpr (!std::is_same<Land, NoLand>::value) {
+      land(ring + (step & 1) * slot);
+      __syncwarp();
+    }
     body(knot(step), ring + (step & 1) * slot);
   }
 }
@@ -379,6 +466,35 @@ __device__ __forceinline__ void load_knot(KnotRegs& g, const float* A,
   g.v = lane < nv ? v[lane] : 0.f;
 }
 
+// The same for bf16 A_k and B_k, kept as they come: lane l holds the
+// 32-bit words w = 32 t + l (entries 2 w and 2 w + 1), widened as they are
+// stored.  A knot's block starts on 16 bytes and its pad is zeros, so each
+// word is aligned and the last one's second half is 0.
+struct KnotRegs16 {
+  unsigned a[(NX * NX + 63) / 64], b[(NX * NU + 63) / 64];
+  float u, v;
+};
+__device__ __forceinline__ void load_knot(KnotRegs16& g,
+                                          const __nv_bfloat16* A,
+                                          const __nv_bfloat16* Bm,
+                                          const float* u, const float* v,
+                                          int nx, int nu, int nv, int lane) {
+  const unsigned* a = reinterpret_cast<const unsigned*>(A);
+  const unsigned* b = reinterpret_cast<const unsigned*>(Bm);
+#pragma unroll
+  for (int t = 0; t < (NX * NX + 63) / 64; ++t) {
+    const int w = 32 * t + lane;
+    g.a[t] = w < (nx * nx + 1) / 2 ? a[w] : 0u;
+  }
+#pragma unroll
+  for (int t = 0; t < (NX * NU + 63) / 64; ++t) {
+    const int w = 32 * t + lane;
+    g.b[t] = w < (nx * nu + 1) / 2 ? b[w] : 0u;
+  }
+  g.u = lane < nu ? u[lane] : 0.f;
+  g.v = lane < nv ? v[lane] : 0.f;
+}
+
 // Store them in the slot's padded layout; entries past the problem's
 // sizes are never written (the zeros the ring starts with stay).
 template <int MP>
@@ -411,6 +527,34 @@ __device__ __forceinline__ void store_knot(RolloutSlot<MP>& X,
   if (lane < 16) X.u[lane] = g.u;
   if (lane < MP) X.v[lane] = g.v;
 }
+// the same from bf16 words: entry 2 w is the low half of word w
+template <int MP>
+__device__ __forceinline__ void store_knot(RolloutSlot<MP>& X,
+                                           const KnotRegs16& g, int nx,
+                                           int nu, int lane) {
+  auto put = [&](float* M, int ld, int rows, int cols, unsigned wd, int e) {
+    const float v[2] = {__uint_as_float(wd << 16),
+                        __uint_as_float(wd & 0xffff0000u)};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int f = e + h;
+      if (f < rows * cols) {
+        if (cols == ld) M[f] = v[h];   // the production widths
+        else M[(f / cols) * ld + f % cols] = v[h];
+      }
+    }
+  };
+  const bool full = nx == NX && nu == NU;
+#pragma unroll
+  for (int t = 0; t < (NX * NX + 63) / 64; ++t)
+    put(X.A, NX, full ? NX : nx, full ? NX : nx, g.a[t], 2 * (32 * t + lane));
+#pragma unroll
+  for (int t = 0; t < (NX * NU + 63) / 64; ++t)
+    put(X.Bm, NU, full ? NX : nx, full ? NU : nu, g.b[t],
+        2 * (32 * t + lane));
+  if (lane < 16) X.u[lane] = g.u;
+  if (lane < MP) X.v[lane] = g.v;
+}
 
 // One sweep of the rollout over the horizon, forward or backward: knot
 // k + 2's inputs (k - 2's) are loaded into registers as the warp starts on
@@ -418,13 +562,13 @@ __device__ __forceinline__ void store_knot(RolloutSlot<MP>& X,
 // other slot of the ring when it is done with knot k: two knots' bodies
 // cover a load's latency.  The register sets alternate, so the loop is
 // unrolled by two.
-template <int MP, class Load, class Body>
+template <int MP, class Regs, class Load, class Body>
 __device__ __forceinline__ void sweep_regs(int H, bool fwd, float* ring,
                                            int nx, int nu, int lane,
                                            Load load, Body body) {
   constexpr int SLOT = rollout_slot<MP>();
   auto knot = [&](int step) { return fwd ? step : H - 1 - step; };
-  KnotRegs g[2];
+  Regs g[2];
   load(g[0], knot(0));
   if (H > 1) load(g[1], knot(1));
   __syncwarp();   // the ring's zeros, and the last sweep's reads, before
@@ -446,10 +590,10 @@ __device__ __forceinline__ void sweep_regs(int H, bool fwd, float* ring,
   }
 }
 
-template <int MP>
+template <int MP, class T>
 __global__ void __launch_bounds__(WARPS * 32, 4)
     rollout_kernel(const float* G, const float* R, const float* Q,
-                   const float* __restrict__ A, const float* __restrict__ Bm,
+                   const T* __restrict__ A, const T* __restrict__ Bm,
                    const float* __restrict__ q, const float* __restrict__ u,
                    const float* __restrict__ zm, const float* __restrict__ x0,
                    float* __restrict__ x, float* __restrict__ rx,
@@ -468,10 +612,17 @@ __global__ void __launch_bounds__(WARPS * 32, 4)
   const size_t bH = (size_t)b * H;
   const int r = lane < NX ? lane : 0;   // lane's row of the 13-wide products
   for (int e = lane; e < 2 * SLOT; e += 32) ring[e] = 0.f;
-  auto load = [&](KnotRegs& g, int k, const float* v, int nv) {
+  // knots in registers: float32 entries, or bf16 words
+  using Regs = typename std::conditional<std::is_same<T, float>::value,
+                                         KnotRegs, KnotRegs16>::type;
+  auto load = [&](Regs& g, int k, const float* v, int nv) {
     const size_t kk = bH + k;
-    load_knot(g, A + kk * nx * nx, Bm + kk * nx * nu, u + kk * nu,
-              v + kk * nv, nx, nu, nv, lane);
+    if constexpr (std::is_same<T, float>::value)
+      load_knot(g, A + kk * nx * nx, Bm + kk * nx * nu, u + kk * nu,
+                v + kk * nv, nx, nu, nv, lane);
+    else
+      load_knot(g, bf16_knot(A, kk, nx, nx), bf16_knot(Bm, kk, nx, nu),
+                u + kk * nu, v + kk * nv, nx, nu, nv, lane);
   };
 
   // forward: x_{k+1} = A_k x_k + B_k u_k, lane i forming entry i with row
@@ -485,7 +636,7 @@ __global__ void __launch_bounds__(WARPS * 32, 4)
 #pragma unroll
     for (int j = 0; j < NX; ++j) xs[j] = __shfl_sync(FULL, v, j);
   }
-  sweep_regs<MP>(H, true, ring, nx, nu, lane, [&](KnotRegs& g, int k) {
+  sweep_regs<MP, Regs>(H, true, ring, nx, nu, lane, [&](Regs& g, int k) {
     load(g, k, q, nx);
   }, [&](int k, const float* slot) {
     const RolloutSlot<MP>& X = *reinterpret_cast<const RolloutSlot<MP>*>(slot);
@@ -509,7 +660,7 @@ __global__ void __launch_bounds__(WARPS * 32, 4)
   // registers and forms rx_k = R u_k + G' zm_k + B_k' lam_k from the same
   // broadcast values, R u_k + G' zm_k off the chain
   float carry = 0.f;
-  sweep_regs<MP>(H, false, ring, nx, nu, lane, [&](KnotRegs& g, int k) {
+  sweep_regs<MP, Regs>(H, false, ring, nx, nu, lane, [&](Regs& g, int k) {
     load(g, k, zm, m);
   }, [&](int k, const float* slot) {
     const RolloutSlot<MP>& X = *reinterpret_cast<const RolloutSlot<MP>*>(slot);
@@ -555,15 +706,20 @@ template <int MP>
 __host__ __device__ constexpr int factor_slot() {
   return (int)(sizeof(FactorSlot<MP>) / 4);
 }
-template <int MP>
+// a slot: the knot's inputs, then (bf16) the area its A_k, B_k arrive in
+template <int MP, class T>
+__host__ __device__ constexpr int factor_stride() {
+  return factor_slot<MP>() + ab_floats<T>();
+}
+template <int MP, class T>
 __host__ __device__ constexpr int factor_warp_floats() {
-  return 2 * factor_slot<MP>() + (int)(sizeof(FactorWork) / 4);
+  return 2 * factor_stride<MP, T>() + (int)(sizeof(FactorWork) / 4);
 }
 
-template <int MP>
+template <int MP, class T>
 __global__ void __launch_bounds__(WARPS * 32, 4)
     factor_kernel(const float* G, const float* R, const float* Q,
-                  const float* __restrict__ A, const float* __restrict__ Bm,
+                  const T* __restrict__ A, const T* __restrict__ Bm,
                   const float* __restrict__ W, float* __restrict__ L,
                   float* __restrict__ dinv, float* __restrict__ K, Dims d) {
   __shared__ PassConsts<MP> c;
@@ -573,8 +729,8 @@ __global__ void __launch_bounds__(WARPS * 32, 4)
   const int b = blockIdx.x * WARPS + warp;
   if (b >= d.B) return;   // whole warps only: no block barrier below
   const int H = d.H, nx = d.nx, nu = d.nu, m = d.m;
-  constexpr int SLOT = factor_slot<MP>();
-  float* ring = dsm + warp * factor_warp_floats<MP>();
+  constexpr int SLOT = factor_stride<MP, T>();
+  float* ring = dsm + warp * factor_warp_floats<MP, T>();
   FactorWork& S = *reinterpret_cast<FactorWork*>(ring + 2 * SLOT);
   const size_t bH = (size_t)b * H;
   const float nan = __int_as_float(0x7fc00000);
@@ -593,9 +749,22 @@ __global__ void __launch_bounds__(WARPS * 32, 4)
     FactorSlot<MP>& X = *reinterpret_cast<FactorSlot<MP>*>(slot);
     const size_t kk = bH + k;
     const int ln = opaque(lane);   // offsets anew each knot, not held
-    stage_mat<NX, NX, RS, true>(X.At, A + kk * nx * nx, nx, nx, ln);
-    stage_mat<NX, NU, RS, true>(X.Bt, Bm + kk * nx * nu, nx, nu, ln);
+    if constexpr (std::is_same<T, float>::value) {
+      stage_mat<NX, NX, RS, true>(X.At, A + kk * nx * nx, nx, nx, ln);
+      stage_mat<NX, NU, RS, true>(X.Bt, Bm + kk * nx * nu, nx, nu, ln);
+    } else {
+      stage_ab16(reinterpret_cast<__nv_bfloat16*>(slot + factor_slot<MP>()),
+                 A, Bm, kk, nx, nu, ln);
+    }
     stage_vec(X.w, W + kk * m, m, ln);
+  };
+  // (bf16) A_k, B_k from the slot's bf16 area into At, Bt, transposed
+  auto land = [&](float* slot) {
+    FactorSlot<MP>& X = *reinterpret_cast<FactorSlot<MP>*>(slot);
+    const __nv_bfloat16* ab =
+        reinterpret_cast<const __nv_bfloat16*>(slot + factor_slot<MP>());
+    widen_mat<NX, NX, RS, true>(X.At, ab, nx, nx, lane);
+    widen_mat<NX, NU, RS, true>(X.Bt, ab + AB_B, nx, nu, lane);
   };
 
   auto body = [&](int k, const float* slot) {
@@ -759,7 +928,10 @@ __global__ void __launch_bounds__(WARPS * 32, 4)
     }
   };
 
-  sweep(H, false, ring, SLOT, request, body);
+  if constexpr (std::is_same<T, float>::value)
+    sweep(H, false, ring, SLOT, request, body);
+  else
+    sweep(H, false, ring, SLOT, request, body, land);
 }
 
 // ---------------------------------------------------------------------------
@@ -783,15 +955,20 @@ template <int MP>
 __host__ __device__ constexpr int vector_slot() {
   return (int)(sizeof(VectorSlot<MP>) / 4);
 }
-template <int MP>
+// a slot: the knot's inputs, then (bf16) the area its A_k, B_k arrive in
+template <int MP, class T>
+__host__ __device__ constexpr int vector_stride() {
+  return vector_slot<MP>() + ab_floats<T>();
+}
+template <int MP, class T>
 __host__ __device__ int vector_warp_floats(int H) {   // ring, work, kff
-  return 2 * vector_slot<MP>() + (int)(sizeof(VectorWork) / 4) + H * NU;
+  return 2 * vector_stride<MP, T>() + (int)(sizeof(VectorWork) / 4) + H * NU;
 }
 
-template <int MP>
+template <int MP, class T>
 __global__ void __launch_bounds__(WARPS * 32, 4)
-    vector_kernel(const float* G, const float* __restrict__ A,
-                  const float* __restrict__ Bm, const float* __restrict__ L,
+    vector_kernel(const float* G, const T* __restrict__ A,
+                  const T* __restrict__ Bm, const float* __restrict__ L,
                   const float* __restrict__ dinv, const float* __restrict__ K,
                   const float* __restrict__ rx, const float* __restrict__ vm,
                   float* __restrict__ du, float* __restrict__ gdu, Dims d) {
@@ -802,8 +979,8 @@ __global__ void __launch_bounds__(WARPS * 32, 4)
   const int b = blockIdx.x * WARPS + warp;
   if (b >= d.B) return;
   const int H = d.H, nx = d.nx, nu = d.nu, m = d.m;
-  constexpr int SLOT = vector_slot<MP>();
-  float* ring = dsm + (size_t)warp * vector_warp_floats<MP>(H);
+  constexpr int SLOT = vector_stride<MP, T>();
+  float* ring = dsm + (size_t)warp * vector_warp_floats<MP, T>(H);
   VectorWork& S = *reinterpret_cast<VectorWork*>(ring + 2 * SLOT);
   float* kff = ring + 2 * SLOT + sizeof(VectorWork) / 4;   // (H, 12)
   const size_t bH = (size_t)b * H;
@@ -813,15 +990,36 @@ __global__ void __launch_bounds__(WARPS * 32, 4)
   int p = 0;   // S.v[p] holds this knot's sv (dx); S.v[p ^ 1] gets the next
 
   auto stage_ab = [&](VectorSlot<MP>& X, size_t kk) {
-    stage_mat<NX, NX, NX, false>(X.A, A + kk * nx * nx, nx, nx, lane);
-    stage_mat<NX, NU, NU, false>(X.Bm, Bm + kk * nx * nu, nx, nu, lane);
+    if constexpr (std::is_same<T, float>::value) {
+      stage_mat<NX, NX, NX, false>(X.A, A + kk * nx * nx, nx, nx, lane);
+      stage_mat<NX, NU, NU, false>(X.Bm, Bm + kk * nx * nu, nx, nu, lane);
+    } else {
+      stage_ab16(reinterpret_cast<__nv_bfloat16*>(
+                     reinterpret_cast<float*>(&X) + vector_slot<MP>()),
+                 A, Bm, kk, nx, nu, lane);
+    }
     stage_mat<NU, NX, NX, false>(X.K, K + kk * nu * nx, nu, nx, lane);
+  };
+  // (bf16) A_k, B_k from the slot's bf16 area into their float32 frames
+  auto land = [&](float* slot) {
+    VectorSlot<MP>& X = *reinterpret_cast<VectorSlot<MP>*>(slot);
+    const __nv_bfloat16* ab =
+        reinterpret_cast<const __nv_bfloat16*>(slot + vector_slot<MP>());
+    widen_mat<NX, NX, NX, false>(X.A, ab, nx, nx, lane);
+    widen_mat<NX, NU, NU, false>(X.Bm, ab + AB_B, nx, nu, lane);
+  };
+  // the sweeps' knots land through `land` in the bf16 instance
+  auto run = [&](bool fwd, auto request, auto body) {
+    if constexpr (std::is_same<T, float>::value)
+      sweep(H, fwd, ring, SLOT, request, body);
+    else
+      sweep(H, fwd, ring, SLOT, request, body, land);
   };
 
   // backward: g = rx_k + G' vm_k + B_k' sv, kff_k = M_k^-1 g (kept in
   // shared memory for the forward sweep), sv <- A_k' sv - K_k' g.  The
   // padded inputs' g is 0, so their kff is 0 too.
-  sweep(H, false, ring, SLOT, [&](int k, float* slot) {
+  run(false, [&](int k, float* slot) {
     VectorSlot<MP>& X = *reinterpret_cast<VectorSlot<MP>*>(slot);
     const size_t kk = bH + k;
     stage_ab(X, kk);
@@ -872,7 +1070,7 @@ __global__ void __launch_bounds__(WARPS * 32, 4)
 
   // forward: du_k = -K_k dx - kff_k, gdu_k = G du_k, dx <- A_k dx + B_k du_k
   if (lane < 16) S.v[p][lane] = 0.f;
-  sweep(H, true, ring, SLOT, [&](int k, float* slot) {
+  run(true, [&](int k, float* slot) {
     stage_ab(*reinterpret_cast<VectorSlot<MP>*>(slot), bH + k);
   }, [&](int k, const float* slot) {
     const VectorSlot<MP>& X = *reinterpret_cast<const VectorSlot<MP>*>(slot);
@@ -908,51 +1106,88 @@ int blocks(const Dims& d) { return (d.B + WARPS - 1) / WARPS; }
 // the largest H of the rollout's history and the vector pass's kff
 constexpr int H_MAX = (int)(DYN_MAX / (WARPS * NX_MAX * sizeof(float)));
 
-template <int MP>
+template <int MP, class T>
 int launch_rollout(const float* G, const float* R, const float* Q,
-                   const float* A, const float* Bm, const float* q,
+                   const T* A, const T* Bm, const float* q,
                    const float* u, const float* zm, const float* x0, float* x,
                    float* rx, float* gu, const Dims& d, cudaStream_t stream) {
   const size_t dyn = (size_t)WARPS * rollout_warp_floats<MP>(d.H) *
                      sizeof(float);
   if (dyn > 32 * 1024) {   // a long horizon's history: above 48 KB
     const int err = (int)cudaFuncSetAttribute(
-        rollout_kernel<MP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        rollout_kernel<MP, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)dyn);
     if (err != 0) return err;
   }
-  rollout_kernel<MP><<<blocks(d), WARPS * 32, dyn, stream>>>(
+  rollout_kernel<MP, T><<<blocks(d), WARPS * 32, dyn, stream>>>(
       G, R, Q, A, Bm, q, u, zm, x0, x, rx, gu, d);
   return (int)cudaGetLastError();
 }
 
-template <int MP>
+template <int MP, class T>
 int launch_factor(const float* G, const float* R, const float* Q,
-                  const float* A, const float* Bm, const float* W, float* L,
+                  const T* A, const T* Bm, const float* W, float* L,
                   float* dinv, float* K, const Dims& d, cudaStream_t stream) {
-  const size_t dyn = (size_t)WARPS * factor_warp_floats<MP>() * sizeof(float);
-  factor_kernel<MP><<<blocks(d), WARPS * 32, dyn, stream>>>(
+  // 30.1-30.4 KB a block (35.4-35.6 KB with the bf16 areas), under the
+  // default 48 KB
+  const size_t dyn =
+      (size_t)WARPS * factor_warp_floats<MP, T>() * sizeof(float);
+  factor_kernel<MP, T><<<blocks(d), WARPS * 32, dyn, stream>>>(
       G, R, Q, A, Bm, W, L, dinv, K, d);
   return (int)cudaGetLastError();
 }
 
-template <int MP>
-int launch_vector(const float* G, const float* A, const float* Bm,
+template <int MP, class T>
+int launch_vector(const float* G, const T* A, const T* Bm,
                   const float* L, const float* dinv, const float* K,
                   const float* rx, const float* vm, float* du, float* gdu,
                   const Dims& d, cudaStream_t stream) {
-  const size_t dyn = (size_t)WARPS * vector_warp_floats<MP>(d.H) *
+  const size_t dyn = (size_t)WARPS * vector_warp_floats<MP, T>(d.H) *
                      sizeof(float);
   if (dyn > 32 * 1024) {   // a long horizon's kff: above the default 48 KB
     const int err = (int)cudaFuncSetAttribute(
-        vector_kernel<MP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        vector_kernel<MP, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)dyn);
     if (err != 0) return err;
   }
-  vector_kernel<MP><<<blocks(d), WARPS * 32, dyn, stream>>>(
+  vector_kernel<MP, T><<<blocks(d), WARPS * 32, dyn, stream>>>(
       G, A, Bm, L, dinv, K, rx, vm, du, gdu, d);
   return (int)cudaGetLastError();
 }
+
+template <class T>
+int rollout(const float* G, const float* R, const float* Q, const T* A,
+            const T* Bm, const float* q, const float* u, const float* zm,
+            const float* x0, float* x, float* rx, float* gu, const Dims& d,
+            cudaStream_t s) {
+  if (bad_dims(d) || d.H > H_MAX) return (int)cudaErrorInvalidValue;
+  return d.m <= 24 ? launch_rollout<24>(G, R, Q, A, Bm, q, u, zm, x0, x, rx,
+                                        gu, d, s)
+                   : launch_rollout<32>(G, R, Q, A, Bm, q, u, zm, x0, x, rx,
+                                        gu, d, s);
+}
+
+template <class T>
+int factor(const float* G, const float* R, const float* Q, const T* A,
+           const T* Bm, const float* W, float* L, float* dinv, float* K,
+           const Dims& d, cudaStream_t s) {
+  if (bad_dims(d)) return (int)cudaErrorInvalidValue;
+  return d.m <= 24 ? launch_factor<24>(G, R, Q, A, Bm, W, L, dinv, K, d, s)
+                   : launch_factor<32>(G, R, Q, A, Bm, W, L, dinv, K, d, s);
+}
+
+template <class T>
+int vector(const float* G, const T* A, const T* Bm, const float* L,
+           const float* dinv, const float* K, const float* rx,
+           const float* vm, float* du, float* gdu, const Dims& d,
+           cudaStream_t s) {
+  if (bad_dims(d) || d.H > H_MAX) return (int)cudaErrorInvalidValue;
+  return d.m <= 24
+             ? launch_vector<24>(G, A, Bm, L, dinv, K, rx, vm, du, gdu, d, s)
+             : launch_vector<32>(G, A, Bm, L, dinv, K, rx, vm, du, gdu, d, s);
+}
+
+using bf16 = __nv_bfloat16;
 
 }  // namespace
 
@@ -967,29 +1202,44 @@ void fused_riccati_limits(int* nx_max, int* nu_max, int* m_max, int* h_max) {
 }
 
 // Each launches on `stream` and returns cudaGetLastError() (0 = launched).
+// The _bf16 entries take A and B as bfloat16, each knot's matrix starting
+// on 16 bytes (its elements padded to a multiple of 8); the rest as the
+// float32 entries.
 int fused_rollout_launch(const float* G, const float* R, const float* Q,
                          const float* A, const float* Bm, const float* q,
                          const float* u, const float* zm, const float* x0,
                          float* x, float* rx, float* gu, int B, int H, int nx,
                          int nu, int m, void* stream) {
-  const Dims d{B, H, nx, nu, m};
-  if (bad_dims(d) || H > H_MAX) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  return m <= 24 ? launch_rollout<24>(G, R, Q, A, Bm, q, u, zm, x0, x, rx,
-                                      gu, d, s)
-                 : launch_rollout<32>(G, R, Q, A, Bm, q, u, zm, x0, x, rx,
-                                      gu, d, s);
+  return rollout(G, R, Q, A, Bm, q, u, zm, x0, x, rx, gu,
+                 Dims{B, H, nx, nu, m}, (cudaStream_t)stream);
+}
+
+int fused_rollout_bf16_launch(const float* G, const float* R, const float* Q,
+                              const void* A, const void* Bm, const float* q,
+                              const float* u, const float* zm,
+                              const float* x0, float* x, float* rx, float* gu,
+                              int B, int H, int nx, int nu, int m,
+                              void* stream) {
+  return rollout(G, R, Q, static_cast<const bf16*>(A),
+                 static_cast<const bf16*>(Bm), q, u, zm, x0, x, rx, gu,
+                 Dims{B, H, nx, nu, m}, (cudaStream_t)stream);
 }
 
 int fused_factor_launch(const float* G, const float* R, const float* Q,
                         const float* A, const float* Bm, const float* W,
                         float* L, float* dinv, float* K, int B, int H, int nx,
                         int nu, int m, void* stream) {
-  const Dims d{B, H, nx, nu, m};
-  if (bad_dims(d)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  return m <= 24 ? launch_factor<24>(G, R, Q, A, Bm, W, L, dinv, K, d, s)
-                 : launch_factor<32>(G, R, Q, A, Bm, W, L, dinv, K, d, s);
+  return factor(G, R, Q, A, Bm, W, L, dinv, K, Dims{B, H, nx, nu, m},
+                (cudaStream_t)stream);
+}
+
+int fused_factor_bf16_launch(const float* G, const float* R, const float* Q,
+                             const void* A, const void* Bm, const float* W,
+                             float* L, float* dinv, float* K, int B, int H,
+                             int nx, int nu, int m, void* stream) {
+  return factor(G, R, Q, static_cast<const bf16*>(A),
+                static_cast<const bf16*>(Bm), W, L, dinv, K,
+                Dims{B, H, nx, nu, m}, (cudaStream_t)stream);
 }
 
 int fused_vector_launch(const float* G, const float* A, const float* Bm,
@@ -997,12 +1247,18 @@ int fused_vector_launch(const float* G, const float* A, const float* Bm,
                         const float* rx, const float* vm, float* du,
                         float* gdu, int B, int H, int nx, int nu, int m,
                         void* stream) {
-  const Dims d{B, H, nx, nu, m};
-  if (bad_dims(d) || H > H_MAX) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  return m <= 24
-             ? launch_vector<24>(G, A, Bm, L, dinv, K, rx, vm, du, gdu, d, s)
-             : launch_vector<32>(G, A, Bm, L, dinv, K, rx, vm, du, gdu, d, s);
+  return vector(G, A, Bm, L, dinv, K, rx, vm, du, gdu, Dims{B, H, nx, nu, m},
+                (cudaStream_t)stream);
+}
+
+int fused_vector_bf16_launch(const float* G, const void* A, const void* Bm,
+                             const float* L, const float* dinv,
+                             const float* K, const float* rx, const float* vm,
+                             float* du, float* gdu, int B, int H, int nx,
+                             int nu, int m, void* stream) {
+  return vector(G, static_cast<const bf16*>(A), static_cast<const bf16*>(Bm),
+                L, dinv, K, rx, vm, du, gdu, Dims{B, H, nx, nu, m},
+                (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -46,6 +46,16 @@
 //    version's order, the accel rows' + and - halves apart.  A per-block
 //    table GG_r = G_ri G_rj (the TPU kernel's GG) rounds in another order:
 //    it moved a lane of the 130-scenario gate past 1e-4, so it went.
+//  - bf16 storage (SolverConfig.stage_bf16; the TPU kernel's A/B streams
+//    cast to bfloat16 by its wrapper, pallas_riccati.py:1403-1405): the
+//    instance for __nv_bfloat16 reads each knot's A and B' from a bf16
+//    block of their own (AB_REC elements, 672 bytes, padded to whole
+//    16-byte pieces) and the rest of the record (IN_Q on) from a shorter
+//    float32 record.  Both are staged in the same cp.async group; after
+//    the wait the warp widens the block in place into the slot's float32
+//    IN_A / IN_BT fields (each lane takes its pairs into registers before
+//    any lane writes), so every use site reads float32 as in the float32
+//    instance, and all the algebra stays float32.
 // Not tensor cores: the products are 13x13 and 12x13, and the port keeps
 // float32 without TF32, which mma / wgmma would need here (the parity gates
 // are float32 gates).
@@ -59,9 +69,12 @@
 // -fPIC, without --use_fast_math (approximate division and flush-to-zero
 // change the IPM's late iterations).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -80,6 +93,13 @@ constexpr unsigned FULL = 0xffffffffu;
 // rows 1), cx (masked rows 1), mask_x
 constexpr int IN_A = 0, IN_BT = 172, IN_Q = 328, IN_MASK = 344, IN_H = 368,
               IN_CX = 392, IN_MX = 400, IN_REC = 408;
+// the bf16 instance's block of A (13x13) and B' (12x13), offsets in bf16
+// elements, each padded to whole 16-byte pieces; its float32 record holds
+// the fields from IN_Q on
+constexpr int AB_A = 0, AB_BT = 176, AB_REC = 336;
+static_assert(AB_BT >= NX * NX && AB_REC >= AB_BT + NU * NX && AB_BT % 8 == 0
+              && AB_REC % 8 == 0 && AB_REC / 2 <= IN_Q,
+              "whole 16-byte pieces, widened within the slot's A and B'");
 // the iterate: u, x, z, s, zx, sx (the outputs)
 constexpr int ST_U = 0, ST_X = 12, ST_Z = 28, ST_S = 64, ST_ZX = 100,
               ST_SX = 108, ST_REC = 116;
@@ -222,8 +242,14 @@ struct IpmArgs {
 
 namespace {
 
+// T: the storage type of A and B' (float, or __nv_bfloat16 in `ab`)
+template <class T>
 __global__ void __launch_bounds__(WARPS * 32, 2)
-    resident_ipm_kernel(IpmArgs a) {
+    resident_ipm_kernel(IpmArgs a, const T* __restrict__ ab) {
+  constexpr bool BF = !std::is_same<T, float>::value;
+  // the first field of a.knots' records: A on, or q on beside `ab`
+  constexpr int IN_LO = BF ? IN_Q : 0;
+  constexpr int IN_LEN = IN_REC - IN_LO;
   __shared__ Consts c;
   extern __shared__ __align__(16) float dsm[];
 
@@ -257,14 +283,62 @@ __global__ void __launch_bounds__(WARPS * 32, 2)
   int col = lane & 15, half = lane >> 4;
   bool colok = col < NX;
 
-  auto in_k = [&](int k) { return a.knots + ((size_t)b * H + k) * IN_REC; };
+  // knot k's record from field f on
+  auto in_k = [&](int k, int f) {
+    return a.knots + ((size_t)b * H + k) * IN_LEN + (f - IN_LO);
+  };
   auto st_k = [&](int k) { return a.st + ((size_t)b * H + k) * ST_REC; };
   auto sc_k = [&](int k) { return a.scratch + ((size_t)b * H + k) * SC_REC; };
+  // knot k's A and B' into a slot: the bf16 instance's block lands at the
+  // slot's start, to be widened once it has arrived
+  auto stage_ab = [&](int k, float* S) {
+    if constexpr (BF)
+      stage<AB_REC / 2>(S + SL_IN, reinterpret_cast<const float*>(
+                                       ab + ((size_t)b * H + k) * AB_REC),
+                        lane);
+    else
+      stage<IN_Q>(S + SL_IN, in_k(k, 0), lane);
+  };
+  // knot k's whole input record
+  auto stage_in = [&](int k, float* S) {
+    if constexpr (BF) {
+      stage_ab(k, S);
+      stage<IN_LEN>(S + SL_IN + IN_LO, in_k(k, IN_LO), lane);
+    } else {
+      stage<IN_REC>(S + SL_IN, in_k(k, 0), lane);
+    }
+  };
+  // the bf16 block at the slot's start -> float32 A and B' in place: every
+  // lane reads its pairs before any lane writes (the block overlaps A)
+  auto widen = [&](float* S) {
+    constexpr int NP = AB_REC / 2, T2 = (NP + 31) / 32;
+    const __nv_bfloat162* src =
+        reinterpret_cast<const __nv_bfloat162*>(S + SL_IN);
+    float2 v[T2];
+#pragma unroll
+    for (int t = 0; t < T2; ++t) {
+      const int p = t * 32 + lane;
+      if (NP % 32 == 0 || p < NP) v[t] = __bfloat1622float2(src[p]);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int t = 0; t < T2; ++t) {
+      const int e = 2 * (t * 32 + lane);   // even: no pair spans A and B'
+      if (e < AB_BT) {
+        if (e < NX * NX) S[SL_IN + IN_A + e] = v[t].x;
+        if (e + 1 < NX * NX) S[SL_IN + IN_A + e + 1] = v[t].y;
+      } else if (e < AB_BT + NU * NX) {
+        S[SL_IN + IN_BT + e - AB_BT] = v[t].x;
+        S[SL_IN + IN_BT + e + 1 - AB_BT] = v[t].y;
+      }
+    }
+  };
 
   // One sweep over the horizon, forward or backward.  request(k, slot)
   // stages knot k's records; knot k + 1 (k - 1) is requested before the
-  // warp starts on knot k, whose slot alternates with it.
-  auto sweep = [&](bool fwd, auto request, auto body) {
+  // warp starts on knot k, whose slot alternates with it.  `with_ab`: the
+  // requests stage A and B' (which the bf16 instance widens on arrival).
+  auto sweep = [&](bool fwd, auto request, auto body, bool with_ab = true) {
     auto knot = [&](int step) { return fwd ? step : H - 1 - step; };
     // the addresses and indices each lane derives from `lane` and `b` are
     // computed anew for each sweep: hoisted above all of them, they would
@@ -286,6 +360,12 @@ __global__ void __launch_bounds__(WARPS * 32, 2)
         cp_wait<0>();
       }
       __syncwarp();
+      if constexpr (BF) {
+        if (with_ab) {
+          widen(ring + (step & 1) * SLOT);
+          __syncwarp();
+        }
+      }
       body(knot(step), ring + (step & 1) * SLOT);
       __syncwarp();   // the slot is free for the next request
     }
@@ -352,7 +432,7 @@ __global__ void __launch_bounds__(WARPS * 32, 2)
   const bool valid = warm && a.wvalid[b] > 0.5f;
   float qn2 = 0.f, hn2 = 0.f, meff = 0.f, shift = 0.f, shiftx = 0.f;
   if (lane < 16) W.xv[lane] = lane < NX ? a.x0[(size_t)b * NX + lane] : 0.f;
-  sweep(true, [&](int k, float* S) { stage<IN_REC>(S + SL_IN, in_k(k), lane); },
+  sweep(true, [&](int k, float* S) { stage_in(k, S); },
         [&](int k, float* S) {
     if (lane < NX) {
       const float qv = S[SL_IN + IN_Q + lane];
@@ -392,7 +472,7 @@ __global__ void __launch_bounds__(WARPS * 32, 2)
   shift = warp_max(shift) + 1.f;
   shiftx = warp_max(shiftx) + 1.f;
   sweep(true, [&](int k, float* S) {
-    stage<IN_REC>(S + SL_IN, in_k(k), lane);
+    stage_in(k, S);
     if (mc > 0) stage<8>(S + SL_SC + SC_RZX, sc_k(k) + SC_RZX, lane);
   }, [&](int k, float* S) {
     float* stg = st_k(k);
@@ -681,7 +761,7 @@ __global__ void __launch_bounds__(WARPS * 32, 2)
   auto rollout = [&](bool pend) {
     if (lane < 16) W.xv[lane] = lane < NX ? a.x0[(size_t)b * NX + lane] : 0.f;
     sweep(true, [&](int k, float* S) {
-      stage<IN_Q>(S + SL_IN, in_k(k), lane);               // A, B'
+      stage_ab(k, S);                                      // A, B'
       stage<ST_X>(S + SL_ST, st_k(k), lane);               // u
       if (pend) stage<12>(S + SL_SC + SC_DU, sc_k(k) + SC_DU, lane);
     }, [&](int k, float* S) {
@@ -721,7 +801,7 @@ __global__ void __launch_bounds__(WARPS * 32, 2)
     }
     for (int e = lane; e < NX * NX; e += 32) W.P[e] = c.Q[e];
     sweep(false, [&](int k, float* S) {
-      stage<IN_REC>(S + SL_IN, in_k(k), lane);
+      stage_in(k, S);
       stage<ST_REC>(S + SL_ST, st_k(k), lane);
       if (pend) stage<SC_REC - SC_DZ>(S + SL_SC + SC_DZ, sc_k(k) + SC_DZ, lane);
     }, [&](int k, float* S) {
@@ -815,7 +895,7 @@ __global__ void __launch_bounds__(WARPS * 32, 2)
     };
     if (lane < 16) W.xv[lane] = 0.f;
     sweep(true, [&](int k, float* S) {
-      stage<IN_REC>(S + SL_IN, in_k(k), lane);
+      stage_in(k, S);
       stage<ST_REC - ST_Z>(S + SL_ST + ST_Z, st_k(k) + ST_Z, lane);
       stage<SC_DU - SC_KT>(S + SL_SC + SC_KT, sc_k(k) + SC_KT, lane);
       stage<SC_REC - SC_DZ>(S + SL_SC + SC_DZ, sc_k(k) + SC_DZ, lane);
@@ -864,7 +944,7 @@ __global__ void __launch_bounds__(WARPS * 32, 2)
   auto mu_affine = [&](float a_aff) {
     float sz = 0.f;
     sweep(true, [&](int k, float* S) {
-      stage<IN_REC - IN_MASK>(S + SL_IN + IN_MASK, in_k(k) + IN_MASK, lane);
+      stage<IN_REC - IN_MASK>(S + SL_IN + IN_MASK, in_k(k, IN_MASK), lane);
       stage<ST_REC - ST_Z>(S + SL_ST + ST_Z, st_k(k) + ST_Z, lane);
       stage<SC_REC - SC_DZ>(S + SL_SC + SC_DZ, sc_k(k) + SC_DZ, lane);
     }, [&](int, float* S) {
@@ -876,7 +956,7 @@ __global__ void __launch_bounds__(WARPS * 32, 2)
         sz += (S[SL_ST + ST_SX + lane] + a_aff * S[SL_SC + SC_DSX + lane])
               * (S[SL_ST + ST_ZX + lane] + a_aff * S[SL_SC + SC_DZX + lane])
               * S[SL_IN + IN_MX + lane];
-    });
+    }, false);
     return warp_sum(sz) / W.meff;
   };
 
@@ -917,7 +997,7 @@ __global__ void __launch_bounds__(WARPS * 32, 2)
     W.sig_mu = sigma * mu;
     if (lane < 16) W.sv[lane] = 0.f;
     sweep(false, [&](int k, float* S) {
-      stage<IN_REC>(S + SL_IN, in_k(k), lane);
+      stage_in(k, S);
       stage<ST_REC - ST_Z>(S + SL_ST + ST_Z, st_k(k) + ST_Z, lane);
       stage<SC_DU>(S + SL_SC, sc_k(k), lane);
       stage<SC_REC - SC_DZ>(S + SL_SC + SC_DZ, sc_k(k) + SC_DZ, lane);
@@ -932,32 +1012,49 @@ __global__ void __launch_bounds__(WARPS * 32, 2)
   }
 }
 
+template <class T>
+int launch(const IpmArgs& args, const T* ab, cudaStream_t stream) {
+  const int dyn = WARPS * WARP_FLOATS * (int)sizeof(float);
+  int err = (int)cudaFuncSetAttribute(
+      resident_ipm_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dyn);
+  if (err != 0) return err;
+  const int blocks = (args.B + WARPS - 1) / WARPS;
+  resident_ipm_kernel<T><<<blocks, WARPS * 32, dyn, stream>>>(args, ab);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Widths and record layout compiled into the kernel, for the wrapper:
 // NX, NU, M_MAX, MC_MAX, IN_REC, IN_A, IN_BT, IN_Q, IN_MASK, IN_H, IN_CX,
-// IN_MX, ST_REC, ST_U, ST_X, ST_Z, ST_S, ST_ZX, ST_SX, SC_REC.
+// IN_MX, ST_REC, ST_U, ST_X, ST_Z, ST_S, ST_ZX, ST_SX, SC_REC, and the bf16
+// instance's block (AB_A, AB_BT, AB_REC, in bf16 elements) and the first
+// field of its float32 record (IN_Q).
 int resident_ipm_layout(int* v, int n) {
   const int vals[] = {NX, NU, M_MAX, MC_MAX, IN_REC, IN_A, IN_BT, IN_Q,
                       IN_MASK, IN_H, IN_CX, IN_MX, ST_REC, ST_U, ST_X, ST_Z,
-                      ST_S, ST_ZX, ST_SX, SC_REC};
+                      ST_S, ST_ZX, ST_SX, SC_REC, AB_A, AB_BT, AB_REC, IN_Q};
   const int count = (int)(sizeof(vals) / sizeof(vals[0]));
   for (int i = 0; i < n && i < count; ++i) v[i] = vals[i];
   return count;
 }
 
 // Launch on `stream`, one warp per scenario; returns the CUDA error of the
-// attribute calls or the launch (0 = launched).
+// attribute calls or the launch (0 = launched).  The float32 instance reads
+// A and B' from the knot records; the bf16 instance from `ab`, (B, H,
+// AB_REC) bf16 blocks, its knot records holding the fields from IN_Q on.
 int resident_ipm_launch(const IpmArgs* args, void* stream) {
-  const int dyn = WARPS * WARP_FLOATS * (int)sizeof(float);
-  int err = (int)cudaFuncSetAttribute(
-      resident_ipm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
-  if (err != 0) return err;
-  const int blocks = (args->B + WARPS - 1) / WARPS;
-  resident_ipm_kernel<<<blocks, WARPS * 32, dyn, (cudaStream_t)stream>>>(*args);
-  return (int)cudaGetLastError();
+  return launch<float>(*args, nullptr, (cudaStream_t)stream);
+}
+
+int resident_ipm_bf16_launch(const IpmArgs* args, const void* ab,
+                             void* stream) {
+  return launch<__nv_bfloat16>(*args,
+                               static_cast<const __nv_bfloat16*>(ab),
+                               (cudaStream_t)stream);
 }
 
 }  // extern "C"

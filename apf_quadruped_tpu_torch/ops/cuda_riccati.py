@@ -25,10 +25,24 @@ predictor's and the corrector's affine-LQR pass).  Arrays are batch-first
 and contiguous per scenario.  The loop reads nothing back to the host, so
 it runs all cfg.iters iterations; a lane that is done takes zero steps.
 It has no state rows and no accel rows (planner.effective_backend sends
-base_box / base_acc plans to the resident kernel) and no stage_bf16.
-Each pass wrapper launches its kernel on CUDA tensors and takes its plain
-version (`plain_rollout`, `plain_factor_pass`, `plain_vector_pass`: loops
-over the horizon of batched small matrix products) on CPU tensors.
+base_box / base_acc plans to the resident kernel).
+Each pass wrapper launches its kernel on CUDA tensors (the bf16 kernel
+for bfloat16 A and Bm) and takes its plain version (`plain_rollout`,
+`plain_factor_pass`, `plain_vector_pass`: loops over the horizon of
+batched small matrix products) on CPU tensors.
+
+SolverConfig.stage_bf16 (the JAX package's bf16 storage of the stage
+linearizations) applies to both kernel backends, as in the JAX package:
+A and B are rounded to bfloat16 (to nearest, ties to even) once a solve,
+kept on the device at bf16, and widened to float32 inside the kernels,
+which launch their bf16 instances; everything else, and all the algebra,
+stays float32.  The resident wrapper puts A and B' in bf16 blocks of
+their own beside shorter knot records; the fused IPM casts A and B once
+(`bf16_knots`: each knot's matrix on 16 bytes, which the bf16 passes
+stage by 16-byte cp.async).  On CPU tensors both backends run their
+plain versions on the rounded A and B (riccati.round_stage_bf16), which
+the CPU tests hold to the JAX kernels in interpret mode.  The scan
+ignores the option.
 """
 
 from __future__ import annotations
@@ -42,16 +56,19 @@ from .. import _kernels
 from .._precision import highest_precision
 from ..config import SolverConfig
 from .riccati import (StageQP, StageSolution, WarmStart, _mtv, _mv,
-                      check_solver_config, finalize, solve_stage_qp,
-                      spd_factor, spd_solve)
+                      finalize, round_stage_bf16, solve_stage_qp, spd_factor,
+                      spd_solve)
 
 
 def solve_stage_qp_resident(qp: StageQP, cfg: SolverConfig = SolverConfig(),
                             warm: WarmStart | None = None) -> StageSolution:
-    """Same contract and outputs as ops.riccati.solve_stage_qp."""
-    check_solver_config(cfg)
+    """Same contract and outputs as ops.riccati.solve_stage_qp; with
+    cfg.stage_bf16, those of the scan on A and B rounded to bfloat16
+    (riccati.round_stage_bf16), the kernel reading them at bf16."""
     device = qp.x0.device
     if device.type == "cpu":
+        if cfg.stage_bf16:
+            qp = round_stage_bf16(qp)
         return solve_stage_qp(qp, cfg, warm)
     if device.type != "cuda":
         raise ValueError(f"solve_stage_qp_resident: unsupported device "
@@ -63,10 +80,11 @@ def solve_stage_qp_resident(qp: StageQP, cfg: SolverConfig = SolverConfig(),
 solve_stage_qp_resident.launches = 0
 
 
-def _launch(qp: StageQP, cfg: SolverConfig,
-            warm: WarmStart | None) -> StageSolution:
-    lib = _kernels.resident_ipm()
-    lay = _kernels.resident_ipm_layout()
+def _pack(qp: StageQP, cfg: SolverConfig, warm: WarmStart | None,
+          lay: dict) -> dict:
+    """The resident kernel's inputs, by IpmArgs field (and "ab", the bf16
+    blocks of A and B' under cfg.stage_bf16), checked against what the
+    kernel takes."""
     dev = qp.x0.device
     f32 = torch.float32
     if qp.x0.dtype != f32:
@@ -106,15 +124,25 @@ def _launch(qp: StageQP, cfg: SolverConfig,
         return out
 
     # the knot records: A, B', q, mask, h, cx, mask_x (masked rows' h and
-    # cx are 1, as in the scan)
-    knots = torch.zeros((nb, H, lay["IN_REC"]), dtype=f32, device=dev)
+    # cx are 1, as in the scan); with stage_bf16, A and B' go to bf16
+    # blocks of their own, rounded as they are copied in, and the records
+    # hold the fields from AB_IN0 on
+    lo = lay["AB_IN0"] if cfg.stage_bf16 else 0
+    knots = torch.zeros((nb, H, lay["IN_REC"] - lo), dtype=f32, device=dev)
 
     def field(name, n):
-        return knots[..., lay[name]:lay[name] + n]
+        return knots[..., lay[name] - lo:lay[name] - lo + n]
 
-    field("IN_A", NX * NX).unflatten(-1, (NX, NX))[..., :nx, :nx] = \
-        flat(qp.A, (H, nx, nx))
-    field("IN_BT", NU * NX).unflatten(-1, (NU, NX))[..., :nu, :nx] = \
+    keep = {"knots": knots}
+    if cfg.stage_bf16:
+        keep["ab"] = torch.zeros((nb, H, lay["AB_REC"]), dtype=torch.bfloat16,
+                                 device=dev)
+        a_blk = keep["ab"][..., lay["AB_A"]:lay["AB_A"] + NX * NX]
+        bt_blk = keep["ab"][..., lay["AB_BT"]:lay["AB_BT"] + NU * NX]
+    else:
+        a_blk, bt_blk = field("IN_A", NX * NX), field("IN_BT", NU * NX)
+    a_blk.unflatten(-1, (NX, NX))[..., :nx, :nx] = flat(qp.A, (H, nx, nx))
+    bt_blk.unflatten(-1, (NU, NX))[..., :nu, :nx] = \
         flat(qp.B, (H, nx, nu)).transpose(-1, -2)
     field("IN_Q", nx)[...] = flat(qp.qlin, (H, nx))
     mask = flat(qp.mask, (H, m))
@@ -123,9 +151,9 @@ def _launch(qp: StageQP, cfg: SolverConfig,
                                         torch.ones_like(mask))
     R = padded(qp.R.to(dev, f32), (NU, NU))
     R.diagonal()[nu:] = 1.0                   # the padded inputs' block
-    keep = {"knots": knots, "x0": padded(flat(qp.x0, (nx,)), (nb, NX)),
-            "G": padded(qp.G.to(dev, f32), (m, NU)), "R": R,
-            "Q": padded(qp.Q.to(dev, f32), (NX, NX))}
+    keep.update(x0=padded(flat(qp.x0, (nx,)), (nb, NX)),
+                G=padded(qp.G.to(dev, f32), (m, NU)), R=R,
+                Q=padded(qp.Q.to(dev, f32), (NX, NX)))
     if has_x:
         maskx = flat(qp.mask_x, (H, mc))
         field("IN_MX", mc)[...] = maskx
@@ -140,12 +168,30 @@ def _launch(qp: StageQP, cfg: SolverConfig,
     if macc:
         keep["acc"] = qp.acc_rhs.to(dev, f32).contiguous()
 
+    return keep
+
+
+def _launch(qp: StageQP, cfg: SolverConfig,
+            warm: WarmStart | None) -> StageSolution:
+    lib = _kernels.resident_ipm()
+    lay = _kernels.resident_ipm_layout()
+    keep = _pack(qp, cfg, warm, lay)
+    dev = qp.x0.device
+    f32 = torch.float32
+    batch = qp.x0.shape[:-1]
+    nb = math.prod(batch)
+    H, nx, nu, m = qp.A.shape[-3], qp.A.shape[-1], qp.B.shape[-1], \
+        qp.h.shape[-1]
+    has_x = qp.Cx is not None
+    mc = qp.Cx.shape[0] if has_x else 0
+    mt = m + (12 if qp.acc_rhs is not None else 0)
     out = {"st": torch.empty((nb, H, lay["ST_REC"]), dtype=f32, device=dev),
            "stat": torch.empty((nb, 4), dtype=f32, device=dev),
            "scratch": torch.empty((nb, H, lay["SC_REC"]), dtype=f32,
                                   device=dev)}
+    ab = keep.get("ab")
     args = _kernels.IpmArgs(
-        **{k: v.data_ptr() for k, v in {**keep, **out}.items()},
+        **{k: v.data_ptr() for k, v in {**keep, **out}.items() if k != "ab"},
         B=nb, H=H, m=m, mc=mc, iters=cfg.iters,
         reltol=cfg.reltol, abstol=cfg.abstol, sigma_pow=cfg.sigma_pow,
         frac=cfg.frac_to_boundary, w_clip=cfg.w_clip,
@@ -153,8 +199,13 @@ def _launch(qp: StageQP, cfg: SolverConfig,
         reg=cfg.static_reg)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.resident_ipm_launch(ctypes.byref(args),
-                                      ctypes.c_void_p(stream))
+        if ab is None:
+            err = lib.resident_ipm_launch(ctypes.byref(args),
+                                          ctypes.c_void_p(stream))
+        else:
+            err = lib.resident_ipm_bf16_launch(ctypes.byref(args),
+                                               ctypes.c_void_p(ab.data_ptr()),
+                                               ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"resident IPM kernel launch failed: CUDA error "
                            f"{err}")
@@ -179,10 +230,44 @@ def _launch(qp: StageQP, cfg: SolverConfig,
 # the fused passes: plain versions (CPU) and kernel wrappers (CUDA)
 # ---------------------------------------------------------------------------
 
+def _widened(ref, *mats):
+    """bf16 matrices (A, Bm under stage_bf16) in ref's dtype, exactly."""
+    return tuple(t.to(ref.dtype) if t.dtype == torch.bfloat16 else t
+                 for t in mats)
+
+
+def bf16_knots(M):
+    """M (B, H, r, c) rounded to bfloat16 (to nearest, ties to even) in the
+    layout the bf16 kernels read: each knot's r x c block contiguous and
+    starting on 16 bytes, its r c elements padded to a multiple of 8.  A
+    (B, H, r, c) view of that buffer, which the pass wrappers take as it
+    is."""
+    nb, H, r, c = M.shape
+    buf = torch.zeros((nb, H, _padded8(r * c)), dtype=torch.bfloat16,
+                      device=M.device)
+    view = buf[..., :r * c].unflatten(-1, (r, c))
+    view.copy_(M)
+    return view
+
+
+def _padded8(n):
+    return -(-n // 8) * 8
+
+
+def _in_bf16_layout(t):
+    """t (B, H, r, c) bf16 lies as bf16_knots lays it out."""
+    H, r, c = t.shape[1:]
+    want = (H * _padded8(r * c), _padded8(r * c), c, 1)
+    return t.data_ptr() % 16 == 0 and all(
+        n == 1 or st == w for n, st, w in zip(t.shape, t.stride(), want))
+
+
 def plain_rollout(G, R, Q, A, Bm, q, u, zm, x0):
     """x (B, H, nx) with x_{k+1} = A_k x_k + B_k u_k; rx (B, H, nu) =
     R u_k + B_k' lam_k + G' zm_k with the costates lam_k = Q x_{k+1} + q_k
-    + A_{k+1}' lam_{k+1}; gu (B, H, m) = G u_k."""
+    + A_{k+1}' lam_{k+1}; gu (B, H, m) = G u_k.  bf16 A, Bm (stage_bf16)
+    are widened to G's dtype first, as every plain pass does."""
+    A, Bm = _widened(G, A, Bm)
     H = A.shape[1]
     x, xs = x0, []
     for k in range(H):
@@ -203,6 +288,7 @@ def plain_factor_pass(G, R, Q, A, Bm, W):
     dinv (B, H, nu) = 1 / diag(L), K (B, H, nu, nx) = M_k^-1 B_k' P A_k;
     P <- sym(Q + A_k' P A_k - K_k' B_k' P A_k).  NaN where M_k is not
     positive definite."""
+    A, Bm = _widened(G, A, Bm)
     H = A.shape[1]
     P = torch.broadcast_to(Q, A.shape[:1] + Q.shape)
     L, D, K = [None] * H, [None] * H, [None] * H
@@ -225,6 +311,7 @@ def plain_vector_pass(G, A, Bm, L, dinv, K, rx, vm):
     du_k = -K_k dx - kff_k, dx <- A_k dx + B_k du_k.  Returns du (B, H, nu)
     and gdu (B, H, m) = G du_k."""
     del dinv                    # the triangular solves use L's diagonal
+    A, Bm = _widened(G, A, Bm)
     H = A.shape[1]
     sv = torch.zeros_like(A[:, 0, 0])
     kff = [None] * H
@@ -250,6 +337,23 @@ def _fused_dims(A, Bm, G):
                          f"nu<={nu_max}, m<={m_max}; got nx={nx}, nu={nu}, "
                          f"m={m}")
     return B, H, nx, nu, m, h_max
+
+
+def _ab_args(name, A, Bm):
+    """(A, Bm, store) for the kernels: both float32, made contiguous (store
+    ""), or both bfloat16 in bf16_knots' layout, copied into it where they
+    are not (store "_bf16", the bf16 kernels' entry points)."""
+    if (A.dtype == torch.bfloat16) != (Bm.dtype == torch.bfloat16):
+        raise TypeError(f"{name}: A and Bm are both bfloat16 or neither, "
+                        f"got {A.dtype} and {Bm.dtype}")
+    if A.dtype != torch.bfloat16:
+        return (*_kernel_args(name, A, Bm), "")
+    for t in (A, Bm):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: the fused Riccati kernels take CUDA "
+                             f"tensors, got {t.device}")
+    A, Bm = (t if _in_bf16_layout(t) else bf16_knots(t) for t in (A, Bm))
+    return A, Bm, "_bf16"
 
 
 def _kernel_args(name, *tensors):
@@ -283,10 +387,13 @@ def _route(name, t):
 
 
 def fused_rollout(G, R, Q, A, Bm, q, u, zm, x0):
-    """plain_rollout's contract; one kernel launch on CUDA tensors."""
+    """plain_rollout's contract; one kernel launch on CUDA tensors (the
+    bf16 kernel for bfloat16 A and Bm)."""
     if not _route("fused_rollout", x0):
         return plain_rollout(G, R, Q, A, Bm, q, u, zm, x0)
-    args = _kernel_args("fused_rollout", G, R, Q, A, Bm, q, u, zm, x0)
+    A, Bm, store = _ab_args("fused_rollout", A, Bm)
+    G, R, Q, q, u, zm, x0 = _kernel_args("fused_rollout", G, R, Q, q, u, zm,
+                                         x0)
     B, H, nx, nu, m, h_max = _fused_dims(A, Bm, G)
     if H > h_max:
         raise ValueError(f"fused_rollout: the kernel keeps x in shared "
@@ -294,41 +401,49 @@ def fused_rollout(G, R, Q, A, Bm, q, u, zm, x0):
     opts = dict(dtype=torch.float32, device=x0.device)
     outs = [torch.empty((B, H, nx), **opts), torch.empty((B, H, nu), **opts),
             torch.empty((B, H, m), **opts)]
-    _launch_fused("fused_rollout", _kernels.fused_riccati().fused_rollout_launch,
-                  args, outs, (B, H, nx, nu, m), x0.device)
+    _launch_fused("fused_rollout", getattr(
+        _kernels.fused_riccati(), f"fused_rollout{store}_launch"),
+        [G, R, Q, A, Bm, q, u, zm, x0], outs, (B, H, nx, nu, m), x0.device)
     fused_rollout.launches += 1
     return tuple(outs)
 
 
 def fused_factor(G, R, Q, A, Bm, W):
-    """plain_factor_pass's contract; one kernel launch on CUDA tensors."""
+    """plain_factor_pass's contract; one kernel launch on CUDA tensors (the
+    bf16 kernel for bfloat16 A and Bm)."""
     if not _route("fused_factor", A):
         return plain_factor_pass(G, R, Q, A, Bm, W)
-    args = _kernel_args("fused_factor", G, R, Q, A, Bm, W)
+    A, Bm, store = _ab_args("fused_factor", A, Bm)
+    G, R, Q, W = _kernel_args("fused_factor", G, R, Q, W)
     B, H, nx, nu, m, _ = _fused_dims(A, Bm, G)
     opts = dict(dtype=torch.float32, device=A.device)
     outs = [torch.empty((B, H, nu, nu), **opts),
             torch.empty((B, H, nu), **opts),
             torch.empty((B, H, nu, nx), **opts)]
-    _launch_fused("fused_factor", _kernels.fused_riccati().fused_factor_launch,
-                  args, outs, (B, H, nx, nu, m), A.device)
+    _launch_fused("fused_factor", getattr(
+        _kernels.fused_riccati(), f"fused_factor{store}_launch"),
+        [G, R, Q, A, Bm, W], outs, (B, H, nx, nu, m), A.device)
     fused_factor.launches += 1
     return tuple(outs)
 
 
 def fused_vector(G, A, Bm, L, dinv, K, rx, vm):
-    """plain_vector_pass's contract; one kernel launch on CUDA tensors."""
+    """plain_vector_pass's contract; one kernel launch on CUDA tensors (the
+    bf16 kernel for bfloat16 A and Bm)."""
     if not _route("fused_vector", A):
         return plain_vector_pass(G, A, Bm, L, dinv, K, rx, vm)
-    args = _kernel_args("fused_vector", G, A, Bm, L, dinv, K, rx, vm)
+    A, Bm, store = _ab_args("fused_vector", A, Bm)
+    G, L, dinv, K, rx, vm = _kernel_args("fused_vector", G, L, dinv, K, rx,
+                                         vm)
     B, H, nx, nu, m, h_max = _fused_dims(A, Bm, G)
     if H > h_max:
         raise ValueError(f"fused_vector: the kernel keeps kff in shared "
                          f"memory and takes H <= {h_max}, got H={H}")
     opts = dict(dtype=torch.float32, device=A.device)
     outs = [torch.empty((B, H, nu), **opts), torch.empty((B, H, m), **opts)]
-    _launch_fused("fused_vector", _kernels.fused_riccati().fused_vector_launch,
-                  args, outs, (B, H, nx, nu, m), A.device)
+    _launch_fused("fused_vector", getattr(
+        _kernels.fused_riccati(), f"fused_vector{store}_launch"),
+        [G, A, Bm, L, dinv, K, rx, vm], outs, (B, H, nx, nu, m), A.device)
     fused_vector.launches += 1
     return tuple(outs)
 
@@ -346,8 +461,9 @@ fused_vector.launches = 0
 def solve_stage_qp_fused(qp: StageQP, cfg: SolverConfig = SolverConfig(),
                          warm: WarmStart | None = None) -> StageSolution:
     """Same contract and outputs as ops.riccati.solve_stage_qp for a StageQP
-    without state rows or accel rows."""
-    check_solver_config(cfg)
+    without state rows or accel rows; with cfg.stage_bf16, those of the
+    scan on A and B rounded to bfloat16, the passes reading them at
+    bf16."""
     if qp.Cx is not None or qp.acc_rhs is not None:
         raise ValueError(
             "the fused Riccati IPM has no state rows (Cx) or accel rows "
@@ -374,6 +490,11 @@ def _fused_impl(qp: StageQP, cfg: SolverConfig,
         return v.reshape((nb,) + rows).contiguous()
 
     A, Bm = flat(qp.A, (H, nx, nx)), flat(qp.B, (H, nx, nu))
+    if cfg.stage_bf16:
+        # cast once a plan: the kernels read bf16 A, B in their layout; the
+        # plain passes (CPU) take them rounded, in the working dtype
+        A, Bm = (bf16_knots(v) if dev.type == "cuda"
+                 else v.to(torch.bfloat16).to(dt) for v in (A, Bm))
     q, mask = flat(qp.qlin, (H, nx)), flat(qp.mask, (H, m))
     h = torch.where(mask > 0, flat(qp.h, (H, m)), torch.ones_like(mask))
     x0 = flat(qp.x0, (nx,))

@@ -17,6 +17,9 @@ This is plain PyTorch: Python loops over the horizon, batched small matrix
 ops over the scenario batch.  It is the port's CPU path (backend
 "riccati"), and the plain version that tests/test_torch_riccati.py and
 chip_smoke.py hold the CUDA kernel (ops/cuda_riccati.py) against.
+SolverConfig.stage_bf16 does not reach it: like the JAX scan, it solves
+with A and B as given (`round_stage_bf16` is the option's plain form for
+the kernel backends).
 """
 
 from __future__ import annotations
@@ -84,12 +87,14 @@ class WarmStart(NamedTuple):
     valid: torch.Tensor
 
 
-def check_solver_config(cfg: SolverConfig) -> None:
-    """Raise on SolverConfig options that the port does not implement."""
-    if cfg.stage_bf16:
-        raise NotImplementedError(
-            "SolverConfig.stage_bf16 is left out of the port (ROADMAP "
-            "'Left out of the port')")
+def round_stage_bf16(qp: StageQP) -> StageQP:
+    """qp with A and B rounded to bfloat16 (to nearest, ties to even) and
+    widened back to their dtype: the data the resident and fused backends
+    compute on under SolverConfig.stage_bf16, in plain form (their CPU
+    routes, the plain versions of their bf16 kernels).  The scan ignores
+    the option and never calls this."""
+    return qp._replace(A=qp.A.to(torch.bfloat16).to(qp.A.dtype),
+                       B=qp.B.to(torch.bfloat16).to(qp.B.dtype))
 
 
 def _mv(a, v):
@@ -136,7 +141,6 @@ def _spd_solve_factory(cfg: SolverConfig):
 
 def solve_stage_qp(qp: StageQP, cfg: SolverConfig = SolverConfig(),
                    warm: WarmStart | None = None) -> StageSolution:
-    check_solver_config(cfg)
     with highest_precision():
         return _solve_impl(qp, cfg, warm)
 

@@ -78,7 +78,20 @@ Phases; each raises on failure, so any failure exits non-zero:
  18. sweep.run_sharded over ["cuda:0"] and ["cuda:0", "cuda:0"] at
      tests/test_sweep.py's small config (B=8, one cycle) against run_batch,
      then inside a world-size-1 NCCL group, where the gather and the
-     stats' mean run as NCCL collectives on the card.
+     stats' mean run as NCCL collectives on the card;
+ 19. SolverConfig.stage_bf16 (A and B at bf16 on the device): the bf16
+     instance of the resident IPM against the scan on the rounded stage
+     QP at B=2048, H=20, all 8 warm x state-rows x accel-rows variants,
+     with phase 3's production gate; the three bf16 fused passes against
+     their plain versions (B 130 and 2048, H=20); plans on bench.py's
+     problem with the flag through "auto" (the resident kernel) and
+     "riccati_fused", cold and warm, against the scan on the rounded
+     stage QP, with the launch counts, and their distance from the
+     float32 plans; then each bf16 kernel's time in turns with its
+     float32 instance (the resident kernel by CUDA events, the passes
+     under the profiler and by CUDA events), its bound with A and B at 2
+     bytes, and the plans' device time and solves/s with and without the
+     flag.
 Every kernel's record carries its least possible time on this card
 (`bound_ms`: the larger of its bytes over 3.35 TB/s and its float32
 operations over 67 TFLOP/s, counted from this run's inputs and, for the
@@ -138,19 +151,20 @@ def knot_flops(nx, nu, m):
     return rollout, factor, vector
 
 
-def pass_work(name, B, H, nx=13, nu=12, m=24):
+def pass_work(name, B, H, nx=13, nu=12, m=24, ab_bytes=4):
     """(bytes, float32 operations) of one call of the fused pass `name`
     ("rollout", "factor" or "vector"): each input read once, each output
-    written once; knot_flops' operations at every knot."""
+    written once, A_k and B_k at `ab_bytes` bytes an entry (2 with
+    stage_bf16), the rest at 4; knot_flops' operations at every knot."""
     f_roll, f_fac, f_vec = knot_flops(nx, nu, m)
-    knot_in = nx * nx + nx * nu                      # A_k, B_k
+    knot_ab = ab_bytes * B * H * (nx * nx + nx * nu)       # A_k, B_k
     return {
-        "rollout": (4 * B * (H * (knot_in + nx + nu + m + nx + nu + m) + nx),
+        "rollout": (knot_ab + 4 * B * (H * (nx + nu + m + nx + nu + m) + nx),
                     B * H * f_roll),
-        "factor": (4 * B * H * (knot_in + m + nu * nu + nu + nu * nx),
+        "factor": (knot_ab + 4 * B * H * (m + nu * nu + nu + nu * nx),
                    B * H * f_fac),
-        "vector": (4 * B * H * (knot_in + nu * nu + nu + nu * nx + nu + m
-                                + nu + m),
+        "vector": (knot_ab + 4 * B * H * (nu * nu + nu + nu * nx + nu + m
+                                          + nu + m),
                    B * H * f_vec)}[name]
 
 
@@ -277,6 +291,13 @@ def turns(fns, rounds=3, reps=50):
 
 def median(xs):
     return float(np.median(xs))
+
+
+def lossless_ms(ws):
+    """(median device ms of the Windows that recorded every launch, how
+    many did) -- all windows when none did."""
+    whole = [w.ms for w in ws if w.share >= 1.0]
+    return median(whole or [w.ms for w in ws]), len(whole)
 
 
 def span(col):
@@ -658,6 +679,31 @@ def closed_loop(dev, card, build_spd_s):
          "bound_by": sub[3][1], "library_ms": sub[2]}]
 
 
+def fused_pass_data(rng, dev, B, mask_frac, H=20, nx=13, nu=12, m=24):
+    """Inputs of the three fused passes on the card, from `rng`: a random
+    stage QP's G, R, Q, A, B, qlin, mask, x0, and u, zm, W, rx, vm (the
+    rows masked), Rreg = R + 1e-6 I."""
+    import torch
+
+    from apf_quadruped_tpu_torch import problems
+
+    f32 = torch.float32
+    d = problems.random_stage_qp(rng, B=B, H=H, NX=nx, NU=nu, M=m,
+                                 mask_frac=mask_frac, diag_q=False)
+    t = {k: torch.as_tensor(v, device=dev) for k, v in d.items()}
+
+    def rnd(*shape, lo=None, hi=None):
+        v = (rng.uniform(lo, hi, shape) if lo is not None
+             else rng.normal(size=shape))
+        return torch.as_tensor(v, dtype=f32, device=dev)
+    mask = t["mask"]
+    t.update(u=rnd(B, H, nu), zm=mask * rnd(B, H, m, lo=0.1, hi=2.0),
+             W=mask * rnd(B, H, m, lo=0.1, hi=10.0), rx=rnd(B, H, nu),
+             vm=mask * rnd(B, H, m),
+             Rreg=t["R"] + 1e-6 * torch.eye(nu, dtype=f32, device=dev))
+    return t
+
+
 def fused_slice(dev, card, build_s, golden, compare_solve, x0, refs, x1,
                 refs1, plain_cold, rate_resident):
     """Phases 11-14; returns the four new kernels' JSON records."""
@@ -695,20 +741,7 @@ def fused_slice(dev, card, build_s, golden, compare_solve, x0, refs, x1,
         return float((a - b).abs().max() / b.abs().max())
 
     def pass_data(B, mask_frac, H=20, nx=13, nu=12, m=24):
-        d = problems.random_stage_qp(rng, B=B, H=H, NX=nx, NU=nu, M=m,
-                                     mask_frac=mask_frac, diag_q=False)
-        t = {k: torch.as_tensor(v, device=dev) for k, v in d.items()}
-
-        def rnd(*shape, lo=None, hi=None):
-            v = (rng.uniform(lo, hi, shape) if lo is not None
-                 else rng.normal(size=shape))
-            return torch.as_tensor(v, dtype=f32, device=dev)
-        mask = t["mask"]
-        t.update(u=rnd(B, H, nu), zm=mask * rnd(B, H, m, lo=0.1, hi=2.0),
-                 W=mask * rnd(B, H, m, lo=0.1, hi=10.0), rx=rnd(B, H, nu),
-                 vm=mask * rnd(B, H, m),
-                 Rreg=t["R"] + 1e-6 * torch.eye(nu, dtype=f32, device=dev))
-        return t
+        return fused_pass_data(rng, dev, B, mask_frac, H, nx, nu, m)
 
     def pass_args(d):
         roll = (d["G"], d["R"], d["Q"], d["A"], d["B"], d["qlin"], d["u"],
@@ -1368,6 +1401,253 @@ def sharded_sweeps(dev, card):
           "the group of 1 changes nothing")
 
 
+def stage_bf16(dev, card, x0, refs, x1, refs1):
+    """Phase 19: SolverConfig.stage_bf16, A and B at bf16 on the device:
+    the bf16 instances of the resident IPM and the three fused passes
+    against their plain versions on the rounded inputs, the plans through
+    them, their times in turns with the float32 instances; returns their
+    JSON records."""
+    import dataclasses
+
+    import torch
+
+    from apf_quadruped_tpu_torch import convert, planner, problems
+    from apf_quadruped_tpu_torch.config import (EngineConfig, MpcConfig,
+                                                SolverConfig)
+    from apf_quadruped_tpu_torch.ops import cuda_riccati as cr
+    from apf_quadruped_tpu_torch.ops import riccati
+
+    B, H = x0.shape[0], 20
+    sol32, sol16 = SolverConfig(), SolverConfig(stage_bf16=True)
+    passes = (cr.fused_rollout, cr.fused_factor, cr.fused_vector)
+    rng = np.random.default_rng(19)
+    err = {"resident": 0.0, "rollout": 0.0, "factor": 0.0, "vector": 0.0}
+
+    def resident16(qp, cfg_s, warm):
+        return cr.solve_stage_qp_resident(
+            qp, dataclasses.replace(cfg_s, stage_bf16=True), warm)
+
+    # (1) the resident bf16 instance against the scan on the rounded stage
+    # QP at the production shape, phase 3's production gate (the kernel
+    # rounds the already rounded A and B to themselves)
+    for warm_on in (False, True):
+        for mc in (0, 6):
+            for acc in (False, True):
+                q = problems.random_stage_qp(rng, B=B, H=H, NX=13, NU=12,
+                                             M=24, mc=mc, acc=acc)
+                qp = riccati.round_stage_bf16(convert.stage_qp(q, dev))
+                warm = None
+                if warm_on:
+                    cold = riccati.solve_stage_qp(qp, sol32)
+                    warm = riccati.WarmStart(
+                        u=cold.u, z=cold.z, s=cold.s,
+                        valid=torch.as_tensor(rng.uniform(size=B) < 0.75,
+                                              device=dev))
+                e = compare_solve(resident16, qp, sol32, warm,
+                                  f"bf16 B={B} H={H} warm={warm_on} mc={mc} "
+                                  f"acc={acc}", 2e-4, 0.995)
+                err["resident"] = max(err["resident"], e)
+
+    # (2) the three fused bf16 passes against their plain versions on the
+    # same bf16 inputs (which widen them first), 1e-5 relative to the
+    # largest entry, as phase 12
+    def pass_data(Bp):
+        t = fused_pass_data(rng, dev, Bp, 0.6, H)
+        t.update(A16=cr.bf16_knots(t["A"]), B16=cr.bf16_knots(t["B"]))
+        return t
+
+    def pass_calls(d, A, Bm):
+        """{pass: (kernel call, plain call)} on A, Bm (bf16 or float32)."""
+        roll = (d["G"], d["R"], d["Q"], A, Bm, d["qlin"], d["u"], d["zm"],
+                d["x0"])
+        fac = (d["G"], d["Rreg"], d["Q"], A, Bm, d["W"])
+        F = cr.plain_factor_pass(*fac)
+        vec = (d["G"], A, Bm, *F, d["rx"], d["vm"])
+        return {"rollout": (lambda: cr.fused_rollout(*roll),
+                            lambda: cr.plain_rollout(*roll)),
+                "factor": (lambda: cr.fused_factor(*fac),
+                           lambda: cr.plain_factor_pass(*fac)),
+                "vector": (lambda: cr.fused_vector(*vec),
+                           lambda: cr.plain_vector_pass(*vec))}
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    for Bp in (130, B):
+        d = pass_data(Bp)
+        worst = {}
+        for name, (kern, plain) in pass_calls(d, d["A16"], d["B16"]).items():
+            out, ref = kern(), plain()
+            torch.cuda.synchronize()
+            worst[name] = max(rel(a, b) for a, b in zip(out, ref))
+            err[name] = max(err[name], max(float((a - b).abs().max())
+                                           for a, b in zip(out, ref)))
+        print(f"[bf16] fused passes B={Bp} H={H} 13/12/24 masks 0.6: rel err "
+              f"rollout {worst['rollout']:.2e}, factor {worst['factor']:.2e}, "
+              f"vector {worst['vector']:.2e} (gate 1e-5)", flush=True)
+        check(max(worst.values()) <= 1e-5, f"bf16 fused passes B={Bp} "
+              f"within 1e-5 of their plain versions")
+
+    # (3) the paths: plans with stage_bf16 through "auto" (the resident
+    # kernel) and "riccati_fused", cold and warm, against the scan on the
+    # rounded stage QP; the kernels' launch counts from zero
+    cfgs = {b: EngineConfig(mpc=MpcConfig(horizon=H, dt=0.025, backend=b),
+                            solver=sol16)
+            for b in ("auto", "riccati_fused")}
+    launches = {}
+    plans16 = {}
+    for backend, cfg in cfgs.items():
+        cr.solve_stage_qp_resident.launches = 0
+        for f in passes:
+            f.launches = 0
+        torch.cuda.synchronize()
+        cold = planner.plan(cfg, x0, refs)
+        warm = riccati.WarmStart(u=cold.forces.reshape(B, H, 12),
+                                 z=cold.sol.z.reshape(B, H, -1),
+                                 s=cold.sol.s.reshape(B, H, -1),
+                                 valid=torch.ones(B, dtype=torch.bool,
+                                                  device=dev))
+        replan = planner.plan(cfg, x1, refs1, warm=warm)
+        torch.cuda.synchronize()
+        launches[backend] = (cr.solve_stage_qp_resident.launches,
+                             *(f.launches for f in passes))
+        plans16[backend] = cold
+        print(f"[bf16] main path: plan(backend={backend!r}, stage_bf16) "
+              f"B={B} H={H} cold and warm: launches resident/rollout/factor/"
+              f"vector {launches[backend]}", flush=True)
+        if backend == "auto":
+            check(launches[backend][0] == 2 and sum(launches[backend][1:])
+                  == 0, "auto ran the resident kernel, once a plan")
+        else:
+            check(launches[backend][0] == 0
+                  and all(n > 0 for n in launches[backend][1:]),
+                  "riccati_fused ran the three passes")
+        for tag, p, xx, rr, w in (("cold", cold, x0, refs, None),
+                                  ("warm", replan, x1, refs1, warm)):
+            ref = riccati.solve_stage_qp(riccati.round_stage_bf16(
+                planner.stage_qp(cfg, xx, rr)), cfg.solver, w)
+            conv = float(p.sol.converged.float().mean())
+            agree = (p.sol.iters == ref.iters) & (
+                p.sol.converged == ref.converged)
+            fk = p.forces.reshape(ref.u.shape)
+            df = float((fk - ref.u).abs()[agree].max())
+            ftol = 1e-3 * max(1.0, float(ref.u.abs().max()))
+            print(f"[bf16] {backend} {tag} plan: converged {conv:.4f}, "
+                  f"iters/converged agree with the scan on the rounded stage "
+                  f"QP on {float(agree.float().mean()):.4f} of lanes, "
+                  f"max|dforce| {df:.3g} (tol {ftol:.3g})", flush=True)
+            check(conv >= 0.99 and float(agree.float().mean()) >= 0.995
+                  and df <= ftol, f"bf16 {backend} {tag} plan agrees with "
+                  f"the scan on the rounded stage QP")
+    for backend, cfg in cfgs.items():
+        p32 = planner.plan(dataclasses.replace(cfg, solver=sol32), x0, refs)
+        print(f"[bf16] {backend} cold plan, bf16 against float32 storage: "
+              f"max|dforce| {float((plans16[backend].forces - p32.forces).abs().max()):.4g} N "
+              f"(largest force {float(p32.forces.abs().max()):.4g} N), iters "
+              f"differ on {int((plans16[backend].sol.iters != p32.sol.iters).sum())} "
+              f"of {B} lanes", flush=True)
+
+    # (4) timing, bf16 and float32 storage in turns in this process
+    qp = planner.stage_qp(cfgs["auto"], x0, refs)
+    res = {"float32": lambda: cr.solve_stage_qp_resident(qp, sol32),
+           "bf16": lambda: cr.solve_stage_qp_resident(qp, sol16)}
+    ev = {"float32": [], "bf16": []}
+    for _ in range(2):
+        for label in ("float32", "bf16", "bf16", "float32"):
+            ev[label].append(event_ms(res[label], 10))
+    ms16, ms32 = median(ev["bf16"]), median(ev["float32"])
+    qpr = riccati.round_stage_bf16(qp)
+    pms = event_ms(lambda: riccati.solve_stage_qp(qpr, sol32), 1)
+    its = cr.solve_stage_qp_resident(qp, sol16)
+    sweeps = its.iters.double() + 1.0 + its.converged.double()
+    f_roll, f_fac, f_vec = knot_flops(13, 12, 24)
+    flops = H * float((its.iters.double() * (f_fac + 2 * f_vec)
+                       + sweeps * f_roll).sum())
+    nbytes = (2 * B * H * (13 * 13 + 13 * 12)            # A, B at bf16
+              + 4 * B * (H * (13 + 2 * 24) + 13          # q, mask, h, x0
+                         + H * (12 + 13 + 2 * 24) + 4))  # u, x, z, s, stat
+    b_res = bound(nbytes, flops)
+    print(f"[time] {card}: resident IPM B={B} H={H} cold (CUDA events, "
+          f"median of 4 in turns): bf16 {ms16:.4f} ms {[round(v, 4) for v in ev['bf16']]}, "
+          f"float32 {ms32:.4f} ms {[round(v, 4) for v in ev['float32']]} "
+          f"({100 * (ms16 / ms32 - 1):+.2f}%); plain on the rounded QP "
+          f"{pms:.3f} ms; bf16 bound {b_res[0]:.4f} ms ({b_res[1]})",
+          flush=True)
+    rec = {"resident": (ms16, pms, b_res)}
+
+    d = pass_data(B)
+    k16, k32 = pass_calls(d, d["A16"], d["B16"]), pass_calls(d, d["A"],
+                                                              d["B"])
+    for name in ("rollout", "factor", "vector"):
+        t = turns({"float32": k32[name][0], "bf16": k16[name][0]}, rounds=2,
+                  reps=20)
+        (w16, n16), (w32, n32) = (lossless_ms(t["bf16"]),
+                                  lossless_ms(t["float32"]))
+        e16 = event_ms(k16[name][0], 20)
+        e32 = event_ms(k32[name][0], 20)
+        pw = window(k16[name][1], 3)
+        b16 = bound(*pass_work(name, B, H, ab_bytes=2))
+        b32 = bound(*pass_work(name, B, H))
+        rec[name] = (w16, pw.ms, b16)
+        print(f"[time] {card}: fused {name} B={B} H={H}: "
+              f"{turns_line('bf16', t['bf16'])}; "
+              f"{turns_line('float32', t['float32'])}; medians of the "
+              f"windows that recorded every launch ({n16} and {n32} of "
+              f"{len(t['bf16'])}) bf16 {w16:.5f} ms, float32 {w32:.5f} ms "
+              f"({100 * (w16 / w32 - 1):+.2f}%); CUDA events bf16 {e16:.4f} "
+              f"ms, float32 {e32:.4f} ms; plain (bf16 inputs) {pw.ms:.4f} "
+              f"ms; bound bf16 {b16[0]:.4f} ms ({b16[1]}, "
+              f"{100 * b16[0] / w16:.2f}% of it), float32 {b32[0]:.4f} ms "
+              f"({100 * b32[0] / w32:.2f}%); SM clock {span([c.split(',')[0] for c in t['clocks']])} MHz",
+              flush=True)
+
+    # the plans: device time a plan (profiler) and solves/s (host clock,
+    # median of 3 bursts of 5), each backend with and without the flag
+    for backend in ("auto", "riccati_fused"):
+        plan_fns = {st: (lambda c=dataclasses.replace(cfgs[backend],
+                                                       solver=sol):
+                         planner.plan(c, x0, refs))
+                    for st, sol in (("float32", sol32), ("bf16", sol16))}
+        t = turns(plan_fns, rounds=1, reps=3)
+        rates = {}
+        for st, fn in plan_fns.items():
+            r = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    fn()
+                torch.cuda.synchronize()
+                r.append(B * 5 / (time.perf_counter() - t0))
+            rates[st] = median(r)
+        print(f"[time] {card}: plan(backend={backend!r}) B={B} H={H} cold, "
+              f"device time a plan: {turns_line('bf16', t['bf16'])}; "
+              f"{turns_line('float32', t['float32'])}; solves/s bf16 "
+              f"{rates['bf16']:.1f}, float32 {rates['float32']:.1f} (host "
+              f"clock, median of 3 bursts of 5)", flush=True)
+
+    out = []
+    src = {"resident": ("resident_ipm", 551),
+           "rollout": ("fused_riccati", 135), "factor": ("fused_riccati", 185),
+           "vector": ("fused_riccati", 234)}
+    counts = {"resident": launches["auto"][0],
+              "rollout": launches["riccati_fused"][1],
+              "factor": launches["riccati_fused"][2],
+              "vector": launches["riccati_fused"][3]}
+    for name, (lib, line) in src.items():
+        ms, pms, b = rec[name]
+        out.append({"name": (f"{lib}_bf16" if name == "resident"
+                             else f"fused_{name}_bf16"),
+                    "route": "cuda",
+                    "source": f"apf_quadruped_tpu_torch/csrc/{lib}.cu",
+                    "replaces": f"apf_quadruped_tpu/ops/pallas_riccati.py:"
+                                f"{line}",
+                    "launches": counts[name], "max_abs_err": err[name],
+                    "ms": ms, "plain_ms": pms, "bound_ms": b[0],
+                    "bound_by": b[1], "library_ms": None})
+    return out
+
+
 def main():
     import numpy as np
     import torch
@@ -1614,6 +1894,7 @@ def main():
     zoo_robots(dev, card)
     long_horizon(dev, card)
     sharded_sweeps(dev, card)
+    bf16 = stage_bf16(dev, card, x0, refs, x1, refs1)
 
     print(json.dumps({"kernels": [{
         "name": "resident_ipm", "route": "cuda",
@@ -1621,7 +1902,7 @@ def main():
         "replaces": "apf_quadruped_tpu/ops/pallas_riccati.py:551",
         "launches": launches, "max_abs_err": max_err, "ms": ms_k,
         "plain_ms": ms_p, "bound_ms": b_res[0], "bound_by": b_res[1],
-        "library_ms": None}] + chol + fused}))
+        "library_ms": None}] + chol + fused + bf16}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

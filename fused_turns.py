@@ -50,8 +50,8 @@ from apf_quadruped_tpu_torch.config import (EngineConfig, MpcConfig,
                                             SolverConfig)
 from apf_quadruped_tpu_torch.ops import cuda_chol
 from apf_quadruped_tpu_torch.ops import cuda_riccati as cr
-from chip_smoke import (bound, check, event_ms, median, pass_work,
-                        print_ptxas, smi, span, turns)
+from chip_smoke import (bound, check, event_ms, lossless_ms, median,
+                        pass_work, print_ptxas, smi, span, turns)
 
 CSRC = Path("apf_quadruped_tpu_torch/csrc")
 
@@ -69,13 +69,6 @@ def on(libs, fn):
             for name, f in saved.items():
                 setattr(_kernels, name, f)
     return call
-
-
-def lossless_ms(ws):
-    """(median device ms of the windows that recorded every launch, how
-    many did) -- all windows when none did."""
-    whole = [w.ms for w in ws if w.share >= 1.0]
-    return median(whole or [w.ms for w in ws]), len(whole)
 
 
 def pass_data(rng, B, dev, H=20, nx=13, nu=12, m=24):

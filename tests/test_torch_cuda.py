@@ -846,3 +846,229 @@ def test_condensed_plan_on_the_card(dev):
     assert bool(out.sol.converged.all() & res.sol.converged.all())
     assert float((out.states - res.states).abs().max()) <= 5e-3
     assert float((out.forces.sum(-2) - res.forces.sum(-2)).abs().max()) <= 5.0
+
+
+# ---------------------------------------------------------------------------
+# SolverConfig.stage_bf16: the bf16 instances of the resident IPM and the
+# fused passes against their plain versions on the rounded inputs
+# ---------------------------------------------------------------------------
+
+CFG16 = SolverConfig(iters=15, reltol=1e-4, abstol=1e-4, static_reg=1e-6,
+                     w_clip=1e6, stage_bf16=True)
+
+
+def _bf16_against_plain(qp, warm=None, atol=ATOL):
+    """The resident kernel with stage_bf16 against the scan on A and B
+    rounded to bfloat16; one launch."""
+    before = cuda_riccati.solve_stage_qp_resident.launches
+    out = cuda_riccati.solve_stage_qp_resident(qp, CFG16, warm)
+    assert cuda_riccati.solve_stage_qp_resident.launches == before + 1
+    ref = tr.solve_stage_qp(tr.round_stage_bf16(qp), CFG, warm)
+    assert out.z.shape == ref.z.shape
+    _assert_close(out, ref, atol)
+    return out
+
+
+@pytest.mark.parametrize("has_warm,mc,acc", VARIANTS)
+def test_bf16_kernel_matches_plain(rng, dev, has_warm, mc, acc):
+    qp = _qp(rng, dev, mc=mc, acc=acc)
+    warm = None
+    if has_warm:
+        cold = tr.solve_stage_qp(tr.round_stage_bf16(qp), CFG)
+        warm = tr.WarmStart(u=cold.u, z=cold.z, s=cold.s,
+                            valid=torch.tensor([True, False, True, True],
+                                               device=dev))
+    out = _bf16_against_plain(qp, warm)
+    # the rounding is applied: the float32 kernel's answer is elsewhere
+    f32 = cuda_riccati.solve_stage_qp_resident(qp, CFG, warm)
+    assert float((out.u - f32.u).abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("H", [1, 2, 7, 30, 40])
+def test_bf16_kernel_ring_over_horizons(rng, dev, H):
+    """The widen of each knot's bf16 block on one knot, two, an odd
+    horizon and long ones, with state rows and accel rows."""
+    _bf16_against_plain(_qp(rng, dev, mc=6, acc=True, H=H, a_noise=0.03))
+
+
+@pytest.mark.parametrize("B", [1, 130, 2049])
+def test_bf16_kernel_batch_off_the_block(rng, dev, B):
+    """As test_kernel_batch_off_the_block: the lanes repeat 9 problems, and
+    every copy of a problem comes back equal bit for bit."""
+    q = problems.random_stage_qp(rng, B=min(B, 9), H=5, NX=13, NU=12, M=24,
+                                 mc=6, acc=True)
+    lanes = np.arange(B) % 9 if B > 9 else np.arange(B)
+    q = {k: v[lanes] if k in ("A", "B", "qlin", "mask", "x0", "cx", "mask_x")
+         else v for k, v in q.items()}
+    out = _bf16_against_plain(convert.stage_qp(q, dev))
+    first = torch.as_tensor(lanes, device=dev)
+    for f in ("u", "x", "z", "s", "zx", "sx", "iters"):
+        assert torch.equal(getattr(out, f), getattr(out, f)[first]), f
+
+
+def test_bf16_kernel_nan_lane_quarantined(rng, dev):
+    qp = _qp(rng, dev)
+    x0 = qp.x0.clone()
+    x0[1, 0] = float("nan")
+    out = _bf16_against_plain(qp._replace(x0=x0))
+    assert bool(torch.isfinite(out.u).all() & torch.isfinite(out.z).all())
+    assert bool((out.u[1] == 0).all()) and not bool(out.converged[1])
+
+
+def test_bf16_kernel_masked_rows_inert(rng, dev):
+    qp = _qp(rng, dev, mask_frac=0.5)
+    mask = qp.mask.clone()
+    mask[..., 0] = 0.0
+    qp = qp._replace(mask=mask)
+    base = cuda_riccati.solve_stage_qp_resident(qp, CFG16)
+    G, h = qp.G.clone(), qp.h.clone()
+    G[0] *= -3.0
+    h[0] = 0.01
+    _assert_equal(cuda_riccati.solve_stage_qp_resident(
+        qp._replace(G=G, h=h), CFG16), base)
+
+
+@pytest.mark.parametrize("mc,acc", [(0, False), (6, True)])
+def test_bf16_kernel_invalid_warm_start_equals_cold(rng, dev, mc, acc):
+    qp = _qp(rng, dev, mc=mc, acc=acc)
+    cold = cuda_riccati.solve_stage_qp_resident(qp, CFG16)
+    B, H, nu = qp.B.shape[0], qp.B.shape[1], qp.B.shape[-1]
+    mt = cold.z.shape[-1]
+    off = tr.WarmStart(u=torch.full((B, H, nu), 3.0, device=dev),
+                       z=torch.full((B, H, mt), 5.0, device=dev),
+                       s=torch.full((B, H, mt), 7.0, device=dev),
+                       valid=torch.zeros(B, dtype=torch.bool, device=dev))
+    _assert_equal(cuda_riccati.solve_stage_qp_resident(qp, CFG16, off), cold)
+
+
+def test_bf16_kernel_reads_bf16_buffers(rng, dev, monkeypatch):
+    """The launch gets A and B' in bfloat16 blocks and knot records without
+    them: nothing widens A and B before the kernel."""
+    seen = []
+    pack = cuda_riccati._pack
+
+    def spy(*args):
+        seen.append(pack(*args))
+        return seen[-1]
+    monkeypatch.setattr(cuda_riccati, "_pack", spy)
+    _bf16_against_plain(_qp(rng, dev, mc=6, acc=True))
+    from apf_quadruped_tpu_torch import _kernels
+    lay = _kernels.resident_ipm_layout()
+    (got,) = seen
+    assert got["ab"].dtype == torch.bfloat16
+    assert got["ab"].shape[-1] == lay["AB_REC"]
+    assert got["knots"].shape[-1] == lay["IN_REC"] - lay["AB_IN0"]
+    assert all(v.dtype == torch.float32 for k, v in got.items() if k != "ab")
+
+
+def _bf16_passes_against_plain(d, A16=None, B16=None):
+    """The three fused passes with bfloat16 A and Bm (A16, B16, by default
+    d's rounded) against their plain versions on the same inputs, 1e-5
+    relative to the largest entry, and the float32 passes on the rounded
+    A and B the same way; one launch of each bf16 kernel."""
+    from apf_quadruped_tpu_torch.ops import cuda_riccati as cr
+    A16 = d["A"].to(torch.bfloat16) if A16 is None else A16
+    B16 = d["B"].to(torch.bfloat16) if B16 is None else B16
+    n0 = (cr.fused_rollout.launches, cr.fused_factor.launches,
+          cr.fused_vector.launches)
+    roll = (d["G"], d["R"], d["Q"], A16, B16, d["qlin"], d["u"], d["zm"],
+            d["x0"])
+    for a, b in zip(cr.fused_rollout(*roll), cr.plain_rollout(*roll)):
+        assert _rel(a, b) <= 1e-5
+    fargs = (d["G"], d["Rreg"], d["Q"], A16, B16, d["W"])
+    F = cr.fused_factor(*fargs)
+    for a, b in zip(F, cr.plain_factor_pass(*fargs)):
+        assert _rel(a, b) <= 1e-5
+    assert bool((torch.triu(F[0], 1) == 0).all())
+    vargs = (d["G"], A16, B16, *F, d["rx"], d["vm"])
+    for a, b in zip(cr.fused_vector(*vargs), cr.plain_vector_pass(*vargs)):
+        assert _rel(a, b) <= 1e-5
+    assert (cr.fused_rollout.launches, cr.fused_factor.launches,
+            cr.fused_vector.launches) == tuple(n + 1 for n in n0)
+    # the float32 kernels on the rounded A and B: the same function
+    Ar, Br = A16.float(), B16.float()
+    F32 = cr.fused_factor(d["G"], d["Rreg"], d["Q"], Ar, Br, d["W"])
+    for a, b in zip(F, F32):
+        assert _rel(a, b) <= 1e-5
+
+
+@pytest.mark.parametrize("B,H", [(4, 1), (4, 2), (130, 3), (130, 30),
+                                 (2048, 20), (9, "H_MAX")])
+@pytest.mark.parametrize("mask_frac", [1.0, 0.6])
+def test_bf16_passes_match_plain(rng, dev, B, H, mask_frac):
+    """Odd horizons put every other knot's unpadded A_k on a 2-byte
+    boundary: the padded layout keeps each on 16 bytes."""
+    from apf_quadruped_tpu_torch import _kernels
+    H = _kernels.fused_riccati_limits()[3] if H == "H_MAX" else H
+    _bf16_passes_against_plain(_pass_data(rng, dev, B, H=H,
+                                          mask_frac=mask_frac))
+
+
+@pytest.mark.parametrize("nx,nu,m", [(1, 1, 1), (6, 4, 8), (13, 12, 5),
+                                     (13, 12, 25), (13, 12, 32)])
+def test_bf16_passes_padded_widths(rng, dev, nx, nu, m):
+    _bf16_passes_against_plain(_pass_data(rng, dev, 6, H=5, nx=nx, nu=nu,
+                                          m=m))
+
+
+@pytest.mark.parametrize("offset", [8, 3])
+def test_bf16_passes_at_an_offset(rng, dev, offset):
+    """A and B as views into larger bf16 buffers, `offset` elements in: 8
+    keeps the kernels' layout (16 bytes), which they read in place; 3 does
+    not, and the wrappers copy into it."""
+    from apf_quadruped_tpu_torch.ops import cuda_riccati as cr
+    d = _pass_data(rng, dev, 130, H=7)
+
+    def inside(M):
+        nb, H, r, c = M.shape
+        p = -(-r * c // 8) * 8
+        buf = torch.zeros(offset + nb * H * p, dtype=torch.bfloat16,
+                          device=dev)
+        view = buf[offset:].view(nb, H, p)[..., :r * c].unflatten(-1, (r, c))
+        view.copy_(M)
+        assert cr._in_bf16_layout(view) == (offset % 8 == 0)
+        return view
+    _bf16_passes_against_plain(d, inside(d["A"]), inside(d["B"]))
+
+
+def test_bf16_passes_reject_mixed_storage(rng, dev):
+    from apf_quadruped_tpu_torch.ops import cuda_riccati as cr
+    d = _pass_data(rng, dev, 4, H=3)
+    with pytest.raises(TypeError, match="bfloat16"):
+        cr.fused_factor(d["G"], d["Rreg"], d["Q"], d["A"].to(torch.bfloat16),
+                        d["B"], d["W"])
+
+
+@pytest.mark.parametrize("kw,atol", [({}, ATOL),
+                                     (dict(B=130, H=3, NX=4, NU=3, M=4), 1e-4)])
+def test_bf16_fused_ipm_matches_scan(rng, dev, kw, atol):
+    from apf_quadruped_tpu_torch.ops import cuda_riccati as cr
+    qp = _qp(rng, dev, **kw)
+    before = cr.fused_factor.launches
+    out = cr.solve_stage_qp_fused(qp, CFG16)
+    assert cr.fused_factor.launches == before + CFG.iters
+    _assert_close(out, tr.solve_stage_qp(tr.round_stage_bf16(qp), CFG),
+                  atol=atol)
+
+
+@pytest.mark.parametrize("backend", ["auto", "riccati_fused"])
+def test_bf16_plan_runs_the_bf16_kernels(dev, backend):
+    """plan with stage_bf16 through "auto" (the resident kernel) and
+    "riccati_fused" on the card: the kernels launch, and the plan is the
+    scan's on the rounded stage QP."""
+    from apf_quadruped_tpu_torch.ops import cuda_riccati as cr
+    cfg = EngineConfig(mpc=MpcConfig(horizon=20, dt=0.025, backend=backend),
+                       solver=SolverConfig(stage_bf16=True))
+    x0, refs = problems.bench_problem(cfg, 8, device=dev)
+    n0 = (cuda_riccati.solve_stage_qp_resident.launches,
+          cr.fused_factor.launches)
+    out = planner.plan(cfg, x0, refs)
+    n1 = (cuda_riccati.solve_stage_qp_resident.launches,
+          cr.fused_factor.launches)
+    assert n1[backend == "riccati_fused"] > n0[backend == "riccati_fused"]
+    qp = tr.round_stage_bf16(planner.stage_qp(cfg, x0, refs))
+    ref = tr.solve_stage_qp(qp, cfg.solver)
+    assert torch.equal(out.sol.iters, ref.iters)
+    ftol = 1e-3 * max(1.0, float(ref.u.abs().max()))
+    assert float((out.forces.reshape(ref.u.shape) - ref.u).abs().max()) \
+        <= ftol

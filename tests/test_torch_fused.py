@@ -256,8 +256,6 @@ def test_fused_rejects_state_and_accel_rows(rng):
         with pytest.raises(ValueError, match="resident"):
             cr.solve_stage_qp_fused(qp, CFG)
     qp = convert.stage_qp(_problem(rng))
-    with pytest.raises(NotImplementedError, match="stage_bf16"):
-        cr.solve_stage_qp_fused(qp, SolverConfig(stage_bf16=True))
 
 
 def _pad_as_the_kernels(d, NX=13, NU=12, MP=24):

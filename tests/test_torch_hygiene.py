@@ -10,7 +10,9 @@
   * the entry points run on the card unless asked for the CPU, and raise
     without one;
   * without nvcc, building a CUDA kernel raises instead of returning;
-  * the one solver option the port leaves out (stage_bf16) raises.
+  * no solver option of the JAX package is left out: stage_bf16, the last
+    to be ported, runs (tests/test_torch_stage_bf16.py holds it to the JAX
+    package).
 """
 
 import ast
@@ -89,7 +91,8 @@ def test_slice_imports_no_jax():
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "ipm_phases.py",
-                                    "spd_turns.py",
+                                    "spd_turns.py", "fused_turns.py",
+                                    "bf16_turns.py",
                                     "tests/test_torch_cuda.py"])
 def test_gpu_scripts_import_no_jax(script):
     """What runs on the GPU machine, which has no JAX, imports none of it
@@ -159,13 +162,19 @@ def test_spd_solve_on_cpu_takes_the_plain_version():
 
 @pytest.mark.parametrize("option", ["stage_bf16"])
 def test_unported_solver_options_raise(option):
+    """The option that raised until it was ported no longer does: the plan
+    on the CPU (the scan, which ignores it as the JAX scan does) and the
+    scan itself run with it set and give the float32 answer."""
     cfg = EngineConfig(mpc=MpcConfig(horizon=4),
                        solver=SolverConfig(**{option: True}))
     x0, refs = problems.bench_problem(cfg, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match=option):
-        planner.plan(cfg, x0, refs)
-    with pytest.raises(NotImplementedError, match=option):
-        riccati.solve_stage_qp(planner.stage_qp(cfg, x0, refs), cfg.solver)
+    out = planner.plan(cfg, x0, refs)
+    ref = planner.plan(dataclasses.replace(cfg, solver=SolverConfig()), x0,
+                       refs)
+    assert torch.equal(out.forces, ref.forces)
+    qp = planner.stage_qp(cfg, x0, refs)
+    assert torch.equal(riccati.solve_stage_qp(qp, cfg.solver).u,
+                       riccati.solve_stage_qp(qp, SolverConfig()).u)
 
 
 def test_unknown_backend_raises():
