@@ -9,9 +9,14 @@ Port of apf_quadruped_tpu/runtime/loop.py.  One replan cycle:
      and the momentum observer updated every tick.
 
 Every LoopState field carries the scenario axis in front.  The JAX module
-scans a single-scenario tick and vmaps it; here the tick loop and the
-cycle loop are Python loops over batched tensors, and nothing in them
-reads a value back to the host.  Gait modes (GaitConfig.mode): "trot"
+scans a single-scenario tick (`lax.scan`, compiled with the cycle) and
+vmaps it; here the tick, `_tick`, is batched, and nothing in it reads a
+value back to the host.  `_scan_ticks` steps through a cycle's ticks: on
+the card it replays a CUDA graph of one tick once a tick (runtime/graph.py:
+captured at the first cycle of a configuration and shape, the same
+kernels on the same data as the eager tick, bit for bit), on the CPU it
+runs the eager tick in a Python loop.  The cycle loop is a Python loop.
+Gait modes (GaitConfig.mode): "trot"
 alternates trot pair A / pair B per cycle; "crawl" walks one leg at a time;
 "adaptive" switches to the crawl combo per lane from the robustness EWMA;
 the named strides of gait.NAMED_MODE_FLAGS run one flag every cycle.
@@ -19,6 +24,7 @@ the named strides of gait.NAMED_MODE_FLAGS run one flag every cycle.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -33,7 +39,7 @@ from ..ops.riccati import WarmStart
 from ..ops.rotations import rot_to_rpy
 from ..sim import disturbance, physics
 from ..sim import terrain as terrain_mod
-from . import observer
+from . import graph, observer
 
 
 class LoopState(NamedTuple):
@@ -106,6 +112,167 @@ def _gait_schedule(cfg: EngineConfig, st: LoopState, ast: apf.ApfState):
 def _take(v: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """v (B, K, ..) at per-lane index k (B,) -> (B, ..)."""
     return v[torch.arange(v.shape[0], device=v.device), k]
+
+
+class _CycleInputs(NamedTuple):
+    """What the tick reads of its cycle (each (B, ..) unless noted)."""
+
+    gait_flag: torch.Tensor      # (B,) int32
+    cycle: torch.Tensor          # (B,) cycle seconds
+    crawling: torch.Tensor       # (B,) bool
+    liftoff_feet: torch.Tensor   # (B, 4, 3) feet at the cycle's start
+    step_targets3: torch.Tensor  # (B, 4, 3)
+    states_knots: torch.Tensor   # (B, H + 1, 13) plan states from t = 0
+    forces: torch.Tensor         # (B, H, 4, 3) plan forces
+    terr: terrain_mod.Terrain
+    dist_sched: torch.Tensor     # (B, n_events, 8)
+    g_vec: torch.Tensor          # (3,) gravity
+    zeros3: torch.Tensor         # (B, 3)
+    knot_ratio: float            # sim.dt / mpc.dt in the working precision
+
+
+# the tick's trace values, in the order _tick returns them
+TRACE = ("conv", "slip", "taumax", "track", "td", "qdd", "wpeak")
+
+
+def _tick(cfg: EngineConfig, cyc: _CycleInputs, carry, k: torch.Tensor):
+    """One 400 Hz tracking tick for the batch, the JAX module's
+    `tick(carry, k)`: references (_tick_refs) -> whole-body QP -> physics
+    step -> margin integral, observer and trace values (_tick_tail).
+    carry = (SimState, ApfState, td_flag (B, 4) bool, td_pos (B, 4, 3),
+    prev_contact (B, 4) bool, ObserverState); k (1,) int64 on the
+    tensors' device.  Returns (carry, the TRACE values, each (B,))."""
+    sim_st, ast, _, _, _, obs = carry
+    wst, ref, td_flag, td_pos = _tick_refs(cfg, cyc, carry, k)
+    out = wbc.solve(cfg, wst, ref)
+    fd, ff = disturbance.eval_links(cyc.dist_sched, sim_st.t)
+    sim_st, cinfo = physics.step(cfg, sim_st, out.tau, cyc.terr, f_dist=fd,
+                                 f_feet=ff)
+    return _tick_tail(cfg, (sim_st, ast, td_flag, td_pos, cinfo.in_contact,
+                            obs), out, cinfo, ref)
+
+
+def _tick_refs(cfg: EngineConfig, cyc: _CycleInputs, carry,
+               k: torch.Tensor):
+    """The tick's references: gait phase -> swing refs (early touch-down)
+    -> MPC refs.  Returns (WbcState, WbcRefs, td_flag, td_pos)."""
+    sim_st, _, td_flag, td_pos, prev_contact, _ = carry
+    dtype = sim_st.q.dtype
+    B = sim_st.q.shape[0]
+    robot = cfg.robot
+    terr = cyc.terr
+    kf = k.to(dtype)
+    t = (kf * cfg.sim.dt).expand(B)
+    info = gait.phase_info(cyc.gait_flag, t, cyc.cycle, dtype=dtype)
+    contact = info["contact"]
+    dur = torch.clamp(info["t_end"] - info["t_start"], min=1e-3)
+    tau_ph = (t[..., None] - info["t_start"]) / dur
+    sw_pos, sw_vel, sw_acc = swing.swing_ref(
+        cyc.liftoff_feet, cyc.step_targets3, cfg.mpc.swing_height, tau_ph,
+        dur)
+
+    if cfg.gait.early_td or terr.h_map is not None:
+        feet_now = rbd.foot_positions_world(robot, sim_st.p_base,
+                                            sim_st.R_wb, sim_st.q)
+    if cfg.gait.early_td:
+        # early touch-down: a swing foot with measured contact in the
+        # last early_td_window of its swing latches td_flag, freezes
+        # its swing ref at the touch-down point and counts as stance
+        near_end = t[..., None] > info["t_end"] - cfg.gait.early_td_window
+        is_swing = contact < 0.5
+        touched = prev_contact & is_swing & near_end
+        newly = touched & ~td_flag
+        td_pos = torch.where(newly[..., None], feet_now, td_pos)
+        td_flag = (td_flag | touched) & is_swing
+        latched = td_flag[..., None]
+        sw_pos = torch.where(latched, td_pos, sw_pos)
+        sw_vel = torch.where(latched, torch.zeros_like(sw_vel), sw_vel)
+        sw_acc = torch.where(latched, torch.zeros_like(sw_acc), sw_acc)
+        contact = torch.maximum(contact, td_flag.to(dtype))
+
+    # MPC refs: first-order hold of the state between knots, zero-order
+    # hold of the forces
+    tk = (kf * cyc.knot_ratio).expand(B)
+    k0 = torch.clamp(tk.to(torch.int32), 0, cfg.mpc.horizon - 1).to(
+        torch.int64)
+    wk = torch.clamp(tk - k0.to(dtype), 0.0, 1.0)[..., None]
+    xk = ((1.0 - wk) * _take(cyc.states_knots, k0)
+          + wk * _take(cyc.states_knots, k0 + 1))
+    com_acc = _take(cyc.forces, k0).sum(dim=-2) / robot.mass + cyc.g_vec
+
+    ref = wbc.WbcRefs(com_pos=xk[..., 3:6], com_vel=xk[..., 9:12],
+                      com_acc=com_acc, rpy=xk[..., 0:3],
+                      omega=xk[..., 6:9], omega_dot=cyc.zeros3,
+                      swing_pos=sw_pos, swing_vel=sw_vel, swing_acc=sw_acc)
+    wst = wbc.WbcState(p_base=sim_st.p_base, R_wb=sim_st.R_wb, q=sim_st.q,
+                       u=sim_st.u, contact=contact, crawl=cyc.crawling)
+    if terr.h_map is not None:
+        wst = wst._replace(cone_rot=terrain_mod.cone_basis(
+            terr, feet_now[..., 0:2]))
+    return wst, ref, td_flag, td_pos
+
+
+def _tick_tail(cfg: EngineConfig, carry, out, cinfo, ref):
+    """After the physics step: the margin integral and the observer, the
+    new carry and the tick's TRACE values."""
+    sim_st, ast, td_flag, td_pos, in_contact, obs = carry
+    ast = apf.accumulate_margin(cfg.apf, ast, cinfo.forces, cfg.sim.dt)
+    obs = observer.update_from_dyn(
+        obs, out.M, out.h_bias, out.Jc, sim_st.u, cinfo.forces_avg,
+        cfg.sim.dt, cfg.observer.gain,
+        mdot_u=observer.mdot_u(cfg, sim_st.R_wb, sim_st.q, sim_st.u))
+    com_now = rbd.com_position(cfg.robot, sim_st.p_base, sim_st.R_wb,
+                               sim_st.q)
+    row = (out.sol.converged, cinfo.slipping.any(dim=-1),
+           out.tau.abs().amax(dim=-1),
+           torch.linalg.vector_norm(com_now - ref.com_pos, dim=-1),
+           td_flag.to(sim_st.q.dtype).mean(dim=-1),
+           out.udot[..., 6:18].abs().amax(dim=-1),
+           torch.linalg.vector_norm(obs.w[..., 0:3], dim=-1))
+    return (sim_st, ast, td_flag, td_pos, in_contact, obs), row
+
+
+def _trace_buffers(B: int, n_ticks: int, dtype, device):
+    """(B, n_ticks) buffers of the TRACE values: the stacked outputs of
+    the JAX module's scan."""
+    return tuple(torch.empty((B, n_ticks), device=device,
+                             dtype=torch.bool if name in ("conv", "slip")
+                             else dtype)
+                 for name in TRACE)
+
+
+def _step(cfg: EngineConfig, cyc: _CycleInputs, carry, k: torch.Tensor,
+          trace):
+    """_tick, its trace values written into `trace` at column k."""
+    carry, row = _tick(cfg, cyc, carry, k)
+    for buf, v in zip(trace, row):
+        buf.index_copy_(1, k, v.unsqueeze(1))
+    return carry
+
+
+def _scan_ticks_eager(cfg: EngineConfig, cyc: _CycleInputs, carry,
+                      n_ticks: int):
+    """n_ticks eager ticks: (carry, the TRACE buffers (B, n_ticks))."""
+    q = carry[0].q
+    trace = _trace_buffers(q.shape[0], n_ticks, q.dtype, q.device)
+    k = torch.zeros(1, dtype=torch.int64, device=q.device)
+    for _ in range(n_ticks):
+        carry = _step(cfg, cyc, carry, k, trace)
+        k += 1
+    return carry, trace
+
+
+def _scan_ticks(cfg: EngineConfig, cyc: _CycleInputs, carry, n_ticks: int):
+    """The JAX module's `lax.scan` over a cycle's ticks: on the card
+    replays of a CUDA graph of one tick (runtime/graph.py), on the CPU the
+    eager ticks.  Returns (carry, the TRACE buffers (B, n_ticks))."""
+    q = carry[0].q
+    if q.device.type != "cuda":
+        return _scan_ticks_eager(cfg, cyc, carry, n_ticks)
+    trace = _trace_buffers(q.shape[0], n_ticks, q.dtype, q.device)
+    carry = graph.scan((cfg, n_ticks), functools.partial(_step, cfg), cyc,
+                       carry, trace, n_ticks)
+    return carry, trace
 
 
 def run_cycle(cfg: EngineConfig, st: LoopState, terr: terrain_mod.Terrain,
@@ -198,96 +365,26 @@ def _run_cycle_impl(cfg: EngineConfig, st: LoopState,
                      st.warm_flag)
 
     # ---- 3. 400 Hz tracking -------------------------------------------
-    liftoff_feet = feet_w
-    # knot states including t = 0 for first-order-hold references
-    states_knots = torch.cat([x0[:, None], plan.states], dim=1)
-    g_vec = torch.tensor([0.0, 0.0, -srb.GRAVITY], dtype=dtype, device=dev)
-    zeros3 = torch.zeros((B, 3), dtype=dtype, device=dev)
-    sim_st, obs = sim0, st.obs
-    td_flag = torch.zeros((B, 4), dtype=torch.bool, device=dev)
-    td_pos = liftoff_feet
-    prev_contact = torch.zeros((B, 4), dtype=torch.bool, device=dev)
-    trace = {k: [] for k in ("conv", "slip", "taumax", "track", "td",
-                             "qdd", "wpeak")}
     # knot coordinate of tick k = k sim.dt / mpc.dt, with the ratio folded
     # in the working precision: XLA folds the JAX module's t / mpc.dt so,
     # and on a knot boundary (k = 30 in float64, k = 50 in float32) the
-    # truncation below then picks the knot the JAX package picks
+    # truncation in the tick then picks the knot the JAX package picks
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
-    knot_ratio = float(np_dtype(cfg.sim.dt)
-                       * (np_dtype(1.0) / np_dtype(cfg.mpc.dt)))
-    for k in range(n_ticks):
-        t = torch.full((B,), k, dtype=dtype, device=dev) * cfg.sim.dt
-        info = gait.phase_info(gait_flag, t, cycle, dtype=dtype)
-        contact = info["contact"]
-        dur = torch.clamp(info["t_end"] - info["t_start"], min=1e-3)
-        tau_ph = (t[..., None] - info["t_start"]) / dur
-        sw_pos, sw_vel, sw_acc = swing.swing_ref(
-            liftoff_feet, step_targets3, cfg.mpc.swing_height, tau_ph, dur)
-
-        if cfg.gait.early_td or terr.h_map is not None:
-            feet_now = rbd.foot_positions_world(robot, sim_st.p_base,
-                                                sim_st.R_wb, sim_st.q)
-        if cfg.gait.early_td:
-            # early touch-down: a swing foot with measured contact in the
-            # last early_td_window of its swing latches td_flag, freezes
-            # its swing ref at the touch-down point and counts as stance
-            near_end = t[..., None] > info["t_end"] - cfg.gait.early_td_window
-            is_swing = contact < 0.5
-            touched = prev_contact & is_swing & near_end
-            newly = touched & ~td_flag
-            td_pos = torch.where(newly[..., None], feet_now, td_pos)
-            td_flag = (td_flag | touched) & is_swing
-            latched = td_flag[..., None]
-            sw_pos = torch.where(latched, td_pos, sw_pos)
-            sw_vel = torch.where(latched, torch.zeros_like(sw_vel), sw_vel)
-            sw_acc = torch.where(latched, torch.zeros_like(sw_acc), sw_acc)
-            contact = torch.maximum(contact, td_flag.to(dtype))
-
-        # MPC refs: first-order hold of the state between knots, zero-order
-        # hold of the forces
-        tk = torch.full((B,), k, dtype=dtype, device=dev) * knot_ratio
-        k0 = torch.clamp(tk.to(torch.int32), 0, Hh - 1).to(torch.int64)
-        wk = torch.clamp(tk - k0.to(dtype), 0.0, 1.0)[..., None]
-        xk = ((1.0 - wk) * _take(states_knots, k0)
-              + wk * _take(states_knots, k0 + 1))
-        com_acc = _take(plan.forces, k0).sum(dim=-2) / robot.mass + g_vec
-
-        ref = wbc.WbcRefs(com_pos=xk[..., 3:6], com_vel=xk[..., 9:12],
-                          com_acc=com_acc, rpy=xk[..., 0:3],
-                          omega=xk[..., 6:9], omega_dot=zeros3,
-                          swing_pos=sw_pos, swing_vel=sw_vel,
-                          swing_acc=sw_acc)
-        wst = wbc.WbcState(p_base=sim_st.p_base, R_wb=sim_st.R_wb,
-                           q=sim_st.q, u=sim_st.u, contact=contact,
-                           crawl=crawling)
-        if terr.h_map is not None:
-            wst = wst._replace(cone_rot=terrain_mod.cone_basis(
-                terr, feet_now[..., 0:2]))
-        out = wbc.solve(cfg, wst, ref)
-
-        fd, ff = disturbance.eval_links(dist_sched, sim_st.t)
-        sim_st, cinfo = physics.step(cfg, sim_st, out.tau, terr, f_dist=fd,
-                                     f_feet=ff)
-        ast = apf.accumulate_margin(cfg.apf, ast, cinfo.forces, cfg.sim.dt)
-        obs = observer.update_from_dyn(
-            obs, out.M, out.h_bias, out.Jc, sim_st.u, cinfo.forces_avg,
-            cfg.sim.dt, cfg.observer.gain,
-            mdot_u=observer.mdot_u(cfg, sim_st.R_wb, sim_st.q, sim_st.u))
-        prev_contact = cinfo.in_contact
-
-        com_now = rbd.com_position(robot, sim_st.p_base, sim_st.R_wb,
-                                   sim_st.q)
-        trace["conv"].append(out.sol.converged)
-        trace["slip"].append(cinfo.slipping.any(dim=-1))
-        trace["taumax"].append(out.tau.abs().amax(dim=-1))
-        trace["track"].append(torch.linalg.vector_norm(com_now - xk[..., 3:6],
-                                                       dim=-1))
-        trace["td"].append(td_flag.to(dtype).mean(dim=-1))
-        trace["qdd"].append(out.udot[..., 6:18].abs().amax(dim=-1))
-        trace["wpeak"].append(torch.linalg.vector_norm(obs.w[..., 0:3],
-                                                       dim=-1))
-    tr = {k: torch.stack(v, dim=-1) for k, v in trace.items()}
+    cyc = _CycleInputs(
+        gait_flag=gait_flag, cycle=cycle, crawling=crawling,
+        liftoff_feet=feet_w, step_targets3=step_targets3,
+        # knot states including t = 0 for first-order-hold references
+        states_knots=torch.cat([x0[:, None], plan.states], dim=1),
+        forces=plan.forces, terr=terr, dist_sched=dist_sched,
+        g_vec=torch.tensor([0.0, 0.0, -srb.GRAVITY], dtype=dtype, device=dev),
+        zeros3=torch.zeros((B, 3), dtype=dtype, device=dev),
+        knot_ratio=float(np_dtype(cfg.sim.dt)
+                         * (np_dtype(1.0) / np_dtype(cfg.mpc.dt))))
+    no_td = torch.zeros((B, 4), dtype=torch.bool, device=dev)
+    carry = (sim0, ast, no_td, feet_w, no_td.clone(), st.obs)
+    carry, tr = _scan_ticks(cfg, cyc, carry, n_ticks)
+    sim_st, ast, _, _, _, obs = carry
+    tr = dict(zip(TRACE, tr))
 
     com_end = rbd.com_position(robot, sim_st.p_base, sim_st.R_wb, sim_st.q)
     metrics = CycleMetrics(

@@ -27,15 +27,18 @@ Phases; each raises on failure, so any failure exits non-zero:
      n in {18, 30, 64}, k in {1, 30}, B in {1, 64, 1030}, a lane that is
      not positive definite, and solve_qp on WBC-shaped QPs (n=30, p=30,
      m=68, B=1024) through the kernels vs the plain route (CPU);
-  9. the closed loop: (a) the JAX suite's health case (flat ground, target
-     (0, 1), B=8; 2 cycles, cut from its 4 for time, its forward progress
-     asked pro rata), (b) the main path, sweep.run_batch at the
-     CLI's sweep configuration (B=64, H=20, 128^2 terrain, 2 cycles), with
-     the kernels' launch counts, (c) the loop against the JAX package's
+  9. the closed loop, its ticks replayed from a captured CUDA graph of the
+     tick (runtime/graph.py): (a) the JAX suite's health case (flat
+     ground, target (0, 1), B=8; 2 cycles, cut from its 4 for time, its
+     forward progress asked pro rata), (b) the main path, sweep.run_batch
+     at the CLI's sweep configuration (B=64, H=20, 128^2 terrain, 2
+     cycles), with the kernels' launch counts (a replay adds the launches
+     of the captured tick), (c) the loop against the JAX package's
      float32 run (tests/data/loop_golden.npz);
  10. timing: closed-loop scenario-ticks/s, a torch.profiler breakdown of
-     the tick (launches, share of device time in the SPD kernels, device
-     idle share), the launch floor, the SPD kernels against their library
+     the graphed tick and of the eager one beside it (launch calls a
+     tick, share of device time in the SPD kernels, device idle share),
+     the launch floor, the SPD kernels against their library
      calls (cholesky_ex, cholesky_solve) in turns, the median of six
      profiler windows each (`window`: each kernel's mean over the launches
      recorded times its launches a call, windows that lost more than 5%
@@ -91,7 +94,19 @@ Phases; each raises on failure, so any failure exits non-zero:
      float32 instance (the resident kernel by CUDA events, the passes
      under the profiler and by CUDA events), its bound with A and B at 2
      bytes, and the plans' device time and solves/s with and without the
-     flag.
+     flag;
+ 20. the graphed tick: against the eager tick (loop._scan_ticks_eager),
+     every LoopState leaf and CycleMetrics field bit for bit over two
+     cycles (cut to 20 ticks) at B=64: trot on flat ground, a height
+     world, early touch-down, crawl, adaptive, other scenarios through
+     the cached graph, two shards on one card; then at the CLI's sweep
+     configuration, B=64 and B=1024: closed-loop scenario-ticks/s and ms
+     a tick over 200-tick cycles, the capture's time and memory pool, a
+     tick's device time by CUDA events over back-to-back replays and the
+     device's idle share, 20-tick cycles graphed and eager in turns, the
+     launch calls a tick (phase 10), and the tick's device time by stage
+     (references, WBC build, QP, torque map, physics, margin, observer
+     and trace), each stage captured alone and replayed.
 Every kernel's record carries its least possible time on this card
 (`bound_ms`: the larger of its bytes over 3.35 TB/s and its float32
 operations over 67 TFLOP/s, counted from this run's inputs and, for the
@@ -318,17 +333,34 @@ def turns_line(label, ws):
 
 
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-                "cuLaunchKernelEx")
+                "cuLaunchKernelEx", "cudaGraphLaunch")
 
 
-def tick_profile(cfg, scn, n_ticks):
+class eager_ticks:
+    """Within this block the closed loop runs its ticks eagerly on the card
+    (loop._scan_ticks_eager), the graph's plain version, for comparison."""
+
+    def __enter__(self):
+        from apf_quadruped_tpu_torch.runtime import loop
+        self.real = loop._scan_ticks
+        loop._scan_ticks = loop._scan_ticks_eager
+
+    def __exit__(self, *exc):
+        from apf_quadruped_tpu_torch.runtime import loop
+        loop._scan_ticks = self.real
+
+
+def tick_profile(cfg, scn, n_ticks, eager=False):
     """One replan cycle of `n_ticks` ticks (sweep.step_batch at `cfg`'s
-    configuration, on `scn`) under torch.profiler, after an unprofiled
-    one.  A dict: `calls`, the kernel launch calls the profiler saw on the
-    host by API (the port's ctypes libraries' among them); `recorded`, the
-    kernels it recorded on the device (copies and sets left out); `dev_us`
-    and `spd_us`, the recorded device time of every kernel and of the SPD
-    factor and substitution; `wall_s`."""
+    configuration, on `scn`; its ticks replayed from the graph, or eager)
+    under torch.profiler, after an unprofiled one (which captures the
+    graph).  A dict: `calls`, the kernel and graph launch calls the
+    profiler saw on the host by API (the port's ctypes libraries' among
+    them); `recorded`, the kernels it recorded on the device (copies and
+    sets left out); `dev_us` and `spd_us`, the recorded device time of
+    every kernel and of the SPD factor and substitution; `wall_s`."""
+    import contextlib
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -337,14 +369,15 @@ def tick_profile(cfg, scn, n_ticks):
     c = cfg.replace(gait=cfg.gait.__class__(
         mode="trot", trot_cycle=n_ticks * cfg.sim.dt))
     st0 = sweep.init_batch(c, scn)
-    sweep.step_batch(c, scn, st0, 1)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
+    with eager_ticks() if eager else contextlib.nullcontext():
         sweep.step_batch(c, scn, st0, 1)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            sweep.step_batch(c, scn, st0, 1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
     ka = prof.key_averages()
     on_dev = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA]
     return {"calls": {e.key: e.count for e in ka if e.key in LAUNCH_CALLS},
@@ -578,29 +611,35 @@ def closed_loop(dev, card, build_spd_s):
     # ---- 10. timing ---------------------------------------------------------
     print(f"[time] {card}: closed loop B={Bs}: {ticks / wall:.1f} "
           f"scenario-ticks/s, {1e3 * wall / (ticks / Bs):.2f} ms per tick "
-          f"(run_batch, {cycles} cycles, host clock)", flush=True)
+          f"(run_batch, {cycles} cycles, host clock, the graph's capture "
+          f"in the first; phase 20 times the cycles after it)", flush=True)
     # the tick under torch.profiler: two short cycles (10 and 20 ticks, the
     # same tick as the main path's), launches per tick from the difference;
     # the kernels recorded on the device against the launch calls say how
-    # far the recorded device time is short
-    p10, p20 = tick_profile(cfg, scn, 10), tick_profile(cfg, scn, 20)
-    made = sum(p20["calls"].values())
-    per_tick = (made - sum(p10["calls"].values())) / 10
-    d20, w20 = p20["dev_us"], p20["wall_s"]
-    if d20 > 0:
-        shares = (f"SPD kernels {100 * p20['spd_us'] / d20:.2f}% of device "
-                  f"time; device busy {d20 / 1e3:.3f} of {1e3 * w20:.3f} ms,"
-                  f" idle {100 * (1 - d20 / 1e6 / w20):.2f}%")
-    else:
-        shares = "device time not measured (the profiler saw none)"
-    print(f"[time] {card}: profiled tick B={Bs}: {per_tick:.0f} kernel "
-          f"launches a tick ({made} in a 20-tick cycle, by API "
-          f"{p20['calls']}; {sum(p10['calls'].values())} in a 10-tick one);"
-          f" {shares} (20-tick cycle under the profiler); device busy "
-          f"{d20 / 20e3:.3f} ms a tick against "
-          f"{1e3 * wall / (ticks / Bs):.2f} ms a tick unprofiled; the window "
-          f"recorded {p20['recorded']} kernels on the device of the {made} "
-          f"launched ({100 * p20['recorded'] / made:.3f}%)", flush=True)
+    # far the recorded device time is short.  The graphed tick (the main
+    # path's) and the eager one beside it
+    profiles = {}
+    for label, eager in (("graphed", False), ("eager", True)):
+        p10, p20 = (tick_profile(cfg, scn, n, eager) for n in (10, 20))
+        made = sum(p20["calls"].values())
+        per_tick = (made - sum(p10["calls"].values())) / 10
+        d20, w20 = p20["dev_us"], p20["wall_s"]
+        if d20 > 0:
+            shares = (f"SPD kernels {100 * p20['spd_us'] / d20:.2f}% of "
+                      f"device time; device busy {d20 / 1e3:.3f} of "
+                      f"{1e3 * w20:.3f} ms, idle "
+                      f"{100 * (1 - d20 / 1e6 / w20):.2f}%")
+        else:
+            shares = "device time not measured (the profiler saw none)"
+        print(f"[time] {card}: profiled {label} tick B={Bs}: {per_tick:.1f} "
+              f"launch calls a tick ({made} in a 20-tick cycle, by API "
+              f"{p20['calls']}; {sum(p10['calls'].values())} in a 10-tick "
+              f"one); {shares} (20-tick cycle under the profiler); device "
+              f"busy {d20 / 20e3:.3f} ms a tick; the window recorded "
+              f"{p20['recorded']} kernels on the device for the {made} "
+              f"launch calls", flush=True)
+        profiles[label] = dict(per_tick=per_tick, calls=p20["calls"],
+                               dev_ms=d20 / 20e3, wall_ms=1e3 * w20 / 20)
 
     # the kernels against their library calls (cholesky_ex; cholesky_solve
     # on the factor), in turns (kernel, library, library, kernel, three
@@ -665,7 +704,7 @@ def closed_loop(dev, card, build_spd_s):
 
     fac, sub = times[("factor", 64, 30, 0)], times[("sub", 64, 30, 1)]
     main_path = dict(cfg=cfg, scn=scn, states=states_b, metrics=metrics_b,
-                     wall=wall)
+                     wall=wall, profiles=profiles)
     return main_path, [
         {"name": "spd_chol_factor", "route": "cuda", "source": src,
          "replaces": "apf_quadruped_tpu/ops/pallas_chol.py:130",
@@ -1316,7 +1355,7 @@ def sharded_sweeps(dev, card):
                                                 MpcConfig, SimConfig,
                                                 SolverConfig, WbcConfig)
     from apf_quadruped_tpu_torch.parallel import distributed
-    from apf_quadruped_tpu_torch.runtime import sweep
+    from apf_quadruped_tpu_torch.runtime import graph, sweep
 
     cfg = EngineConfig(gait=GaitConfig(trot_cycle=0.1),
                        mpc=MpcConfig(horizon=4, dt=0.025),
@@ -1385,6 +1424,8 @@ def sharded_sweeps(dev, card):
                                      else "gloo"), "the group runs NCCL")
         for k in calls:
             setattr(dist, k, counted(k))
+        # the tick's graph captured anew with the group's threads running
+        graph.clear()
         res3, stats3 = run("two shards, NCCL group of 1", [d0, d0])
     finally:
         for k, f in real.items():
@@ -1648,6 +1689,283 @@ def stage_bf16(dev, card, x0, refs, x1, refs1):
     return out
 
 
+def replay_ms(fn, reps=50):
+    """CUDA-event ms of one replay of `fn` captured alone in a CUDA graph
+    (after one eager call on a side stream), mean over `reps` back-to-back
+    replays: the device's time for fn, the host out of the way."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    return event_ms(g.replay, reps)
+
+
+def graphed_tick(dev, card, main_path):
+    """Phase 20: the closed loop's tick replayed from a captured CUDA graph
+    (runtime/graph.py), against the eager tick (loop._scan_ticks_eager)
+    bit for bit at phase 9(b)'s B=64 and two cycles (cut to 20 ticks each
+    for time): trot on flat ground without early touch-down, a height
+    world, early touch-down, crawl, adaptive, a second batch of other
+    scenarios through the cached graph, and step_batch_sharded over two
+    shards on one card.  Then its numbers at the CLI's sweep configuration,
+    B=64 and B=1024: closed-loop cycles of 200 ticks after the capturing
+    one (host clock), the capture's time and memory pool, a tick's device
+    time by CUDA events over back-to-back replays and the device's idle
+    share, 20-tick cycles graphed and eager in turns, and the tick's device
+    time split by stage (each stage captured alone on the tick's inputs
+    and replayed)."""
+    import dataclasses
+
+    import torch
+
+    from apf_quadruped_tpu_torch import _precision, wbc
+    from apf_quadruped_tpu_torch.ops import qpsolve
+    from apf_quadruped_tpu_torch.parallel import mesh as mesh_mod
+    from apf_quadruped_tpu_torch.runtime import graph, loop, sweep
+    from apf_quadruped_tpu_torch.sim import disturbance, physics, terrain
+
+    def short(cfg, **gait):
+        return cfg.replace(gait=dataclasses.replace(
+            cfg.gait, trot_cycle=0.05, crawl_cycle=0.05, **gait))
+
+    def leaves(tree):
+        if isinstance(tree, torch.Tensor):
+            return [tree]
+        return [x for v in tree if v is not None for x in leaves(v)]
+
+    def bitwise(a, b):
+        la, lb = leaves(a), leaves(b)
+        return len(la) == len(lb) and all(
+            x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+    # ---- (a) graphed against eager, bit for bit ---------------------------
+    B, cycles = main_path["scn"].target_xy.shape[0], 2
+
+    def case(name, seed=0):
+        mode = name if name in ("crawl", "adaptive") else "trot"
+        cfg = short(sweep.cli_config(gait=mode), early_td=name != "trot")
+        scn = sweep.random_scenarios(cfg, B, seed=seed, device=dev)
+        terr = (terrain.block(cfg.sim, batch=(B,), device=dev)
+                if name == "height" else sweep._terrain(cfg, scn))
+        return cfg, terr, scn.target_xy, scn.dist_sched
+
+    def two_cycles(cfg, terr, tgt, dist):
+        return loop.run(cfg, loop.init(cfg, B, device=dev), terr, tgt, dist,
+                        cycles)
+
+    t0 = time.perf_counter()
+    same = {}
+    for name in ("trot", "height", "early_td", "crawl", "adaptive"):
+        args = case(name)
+        graph.clear()
+        graphed = two_cycles(*args)
+        one = len(graph.entries()) == 1
+        with eager_ticks():
+            same[name] = one and bitwise(graphed, two_cycles(*args))
+    graph.clear()
+    first = two_cycles(*case("early_td"))
+    kept = [t.clone() for t in leaves(first)]
+    cached = graph.entries()
+    args = case("early_td", seed=1)
+    second = two_cycles(*args)
+    with eager_ticks():
+        eager_second = two_cycles(*args)
+    same["other scenarios through the cached graph"] = (
+        graph.entries() == cached and bitwise(second, eager_second)
+        and bitwise(first, kept))
+    cfg = short(sweep.cli_config())
+    scn = sweep.random_scenarios(cfg, B, seed=2, device=dev)
+    m2 = mesh_mod.scenario_mesh(["cuda:0", "cuda:0"])
+
+    def sharded():
+        return sweep.step_batch_sharded(
+            cfg, mesh_mod.shard_batch(m2, scn),
+            mesh_mod.shard_batch(m2, sweep.init_batch(cfg, scn)), cycles, m2)
+
+    graph.clear()
+    graphed = sharded()
+    one = len(graph.entries()) == 1
+    with eager_ticks():
+        same["two shards on one card"] = one and bitwise(graphed, sharded())
+    print(f"[graph] B={B}, {cycles} cycles of 20 ticks, graphed against "
+          f"eager, every LoopState leaf and CycleMetrics field equal bit for "
+          f"bit: {json.dumps(same)} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    check(all(same.values()), "the graphed tick equals the eager tick")
+
+    # ---- (b) the numbers ----------------------------------------------------
+    cfg = sweep.cli_config()
+    n_ticks = int(round(cfg.gait.trot_cycle / cfg.sim.dt))
+    prof = main_path["profiles"]
+    print(f"[graph] {card}: launch calls the host makes a tick (phase 10, "
+          f"B={B}): graphed {prof['graphed']['per_tick']:.1f} "
+          f"({prof['graphed']['calls']} in a 20-tick cycle), eager "
+          f"{prof['eager']['per_tick']:.1f}", flush=True)
+    check(prof["graphed"]["per_tick"] <= 5,
+          "the host makes a handful of launch calls a graphed tick")
+    seen = {}
+
+    def spy(cfg_, cyc, carry, n):
+        seen.update(cyc=cyc, carry=carry)
+        return real(cfg_, cyc, carry, n)
+
+    for Bn in (64, 1024):
+        scn = sweep.random_scenarios(cfg, Bn, seed=0, device=dev)
+        st = sweep.init_batch(cfg, scn)
+        graph.clear()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        real = loop._scan_ticks
+        loop._scan_ticks = spy
+        try:
+            st, _ = sweep.step_batch(cfg, scn, st, 1)
+        finally:
+            loop._scan_ticks = real
+        torch.cuda.synchronize()
+        capturing = time.perf_counter() - t
+        (entry,) = graph.entries()
+        # the device's span of each cycle's ticks: CUDA events around
+        # graph.scan (the copies in, the replays, the copies out)
+        walls, spans = [], []
+        real_scan = graph.scan
+
+        def timed_scan(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real_scan(*args)
+            end.record()
+            spans.append((start, end))
+            return out
+
+        graph.scan = timed_scan
+        try:
+            for _ in range(2):
+                t = time.perf_counter()
+                st, met = sweep.step_batch(cfg, scn, st, 1)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t)
+        finally:
+            graph.scan = real_scan
+        spans = [a.elapsed_time(b) / 1e3 for a, b in spans]
+        wall = median(walls)
+        ms_tick = 1e3 * wall / n_ticks
+        idle = [100 * (1 - sp / w) for sp, w in zip(spans, walls)]
+
+        def replay_cycle():
+            entry.k.zero_()
+            for _ in range(n_ticks):
+                entry.graph.replay()
+
+        dev_ms = event_ms(replay_cycle, reps=3) / n_ticks
+        print(f"[graph] {card}: closed loop B={Bn} at the CLI's sweep "
+              f"configuration, graphed: {Bn * n_ticks / wall:.1f} "
+              f"scenario-ticks/s, {ms_tick:.3f} ms a tick (cycles of "
+              f"{n_ticks} ticks after the capturing one, "
+              f"{[round(w, 4) for w in walls]} s, host clock; the "
+              f"capturing cycle {capturing:.3f} s); qp_converged mean "
+              f"{float(met.qp_converged.mean()):.4f}; capture "
+              f"{entry.capture_s:.3f} s, memory pool {entry.pool_bytes} "
+              f"bytes; the device's span of a cycle's ticks "
+              f"{[round(v, 4) for v in spans]} s (CUDA events around "
+              f"graph.scan), {1e3 * median(spans) / n_ticks:.4f} ms a tick; "
+              f"the rest of the cycle (navigation, plan, metrics) "
+              f"{[round(w - v, 4) for w, v in zip(walls, spans)]} s, "
+              f"{[round(v, 2) for v in idle]}% of a cycle, in which the "
+              f"ticks leave the device idle; a tick's device time "
+              f"{dev_ms:.4f} ms (CUDA events, "
+              f"3 x {n_ticks} back-to-back replays)", flush=True)
+        check(bool(torch.isfinite(met.com).all()), f"B={Bn} finite")
+
+        # in turns: 20-tick cycles, eager, graphed, graphed, eager
+        c20 = short(cfg)
+        st0 = sweep.init_batch(c20, scn)
+
+        def cycle20():
+            sweep.step_batch(c20, scn, st0, 1)
+            torch.cuda.synchronize()
+
+        cycle20()
+        times = {"eager": [], "graphed": []}
+        for label in ("eager", "graphed", "graphed", "eager"):
+            t = time.perf_counter()
+            if label == "eager":
+                with eager_ticks():
+                    cycle20()
+            else:
+                cycle20()
+            times[label].append(time.perf_counter() - t)
+        g_ms, e_ms = (1e3 * median(times[k]) / 20 for k in ("graphed",
+                                                            "eager"))
+        print(f"[graph] {card}: 20-tick cycles B={Bn} in turns (eager, "
+              f"graphed, graphed, eager; host clock, the plan's share "
+              f"included): graphed {Bn * 1e3 / g_ms:.1f} scenario-ticks/s, "
+              f"{g_ms:.3f} ms a tick "
+              f"{[round(v, 4) for v in times['graphed']]} s; "
+              f"eager {Bn * 1e3 / e_ms:.1f} scenario-ticks/s, {e_ms:.3f} ms "
+              f"a tick {[round(v, 4) for v in times['eager']]} s; "
+              f"{e_ms / g_ms:.2f}x", flush=True)
+
+        # the tick's device time by stage, each stage captured alone on
+        # the inputs of the cycle's first tick
+        cyc, carry = seen["cyc"], seen["carry"]
+        sim0 = carry[0]
+        k = torch.zeros(1, dtype=torch.int64, device=dev)
+        with _precision.highest_precision():
+            wst, ref, td_flag, td_pos = loop._tick_refs(cfg, cyc, carry, k)
+            qp, _ = wbc._build_qp(cfg, wst, ref)
+            out = wbc.solve(cfg, wst, ref)
+
+            def phys():
+                fd, ff = disturbance.eval_links(cyc.dist_sched, sim0.t)
+                return physics.step(cfg, sim0, out.tau, cyc.terr,
+                                    f_dist=fd, f_feet=ff)
+
+            sim1, cinfo = phys()
+            trace = loop._trace_buffers(sim0.q.shape[0], 1, sim0.q.dtype,
+                                        dev)
+
+            def tail():
+                new, row = loop._tick_tail(
+                    cfg, (sim1,) + carry[1:2] + (td_flag, td_pos,
+                                                 cinfo.in_contact,
+                                                 carry[5]), out, cinfo, ref)
+                for buf, v in zip(trace, row):
+                    buf.index_copy_(1, k, v.unsqueeze(1))
+                return new
+
+            ms = {"references (gait phase, swing, MPC refs)":
+                  replay_ms(lambda: loop._tick_refs(cfg, cyc, carry, k)),
+                  "WBC build": replay_ms(lambda: wbc._build_qp(cfg, wst,
+                                                               ref)),
+                  "QP (solve_qp)": replay_ms(lambda: qpsolve.solve_qp(
+                      qp, cfg.solver)),
+                  "wbc.solve": replay_ms(lambda: wbc.solve(cfg, wst, ref)),
+                  "physics (disturbance, physics.step)": replay_ms(phys),
+                  "margin, observer and trace": replay_ms(tail),
+                  "tick": replay_ms(lambda: loop._step(
+                      cfg, cyc, carry, k, loop._trace_buffers(
+                          sim0.q.shape[0], 1, sim0.q.dtype, dev)))}
+        ms["torque map (wbc.solve - build - QP)"] = (
+            ms["wbc.solve"] - ms["WBC build"] - ms["QP (solve_qp)"])
+        parts = [key for key in ms if key not in ("wbc.solve", "tick")]
+        total = sum(ms[key] for key in parts)
+        print(f"[graph] {card}: the graphed tick's device time by stage, "
+              f"B={Bn} (each stage captured alone, CUDA events over 50 "
+              f"replays): " + "; ".join(
+                  f"{key} {ms[key]:.4f} ms ({100 * ms[key] / total:.1f}%)"
+                  for key in parts)
+              + f"; sum {total:.4f} ms, the whole tick captured alone "
+              f"{ms['tick']:.4f} ms, the cycle's graph {dev_ms:.4f} ms",
+              flush=True)
+
+
 def main():
     import numpy as np
     import torch
@@ -1895,6 +2213,7 @@ def main():
     long_horizon(dev, card)
     sharded_sweeps(dev, card)
     bf16 = stage_bf16(dev, card, x0, refs, x1, refs1)
+    graphed_tick(dev, card, main_path)
 
     print(json.dumps({"kernels": [{
         "name": "resident_ipm", "route": "cuda",

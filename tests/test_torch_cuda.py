@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain versions, on the card: the
 resident IPM (csrc/resident_ipm.cu), the SPD factor / substitution /
 factor-and-solve (csrc/spd_chol.cu) and the fused Riccati passes
-(csrc/fused_riccati.cu).
+(csrc/fused_riccati.cu); and the closed loop's tick replayed from a
+captured CUDA graph (runtime/graph.py) against the eager tick.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no JAX (the GPU machine has none) and takes its seed from its own
@@ -456,12 +457,15 @@ def test_solve_qp_kernel_route(rng, dev):
 
 def test_closed_loop_runs_through_the_kernels(dev):
     """A short closed-loop cycle (20 ticks) on the card launches the SPD
-    kernels and the resident IPM and stays finite and upright."""
-    from apf_quadruped_tpu_torch.runtime import sweep
+    kernels and the resident IPM and stays finite and upright.  Its ticks
+    are replays of one captured graph (runtime/graph.py), and the launch
+    counters count the kernels each replay launches."""
+    from apf_quadruped_tpu_torch.runtime import graph, sweep
     cfg = sweep.cli_config()
     cfg = cfg.replace(gait=GaitConfig(mode="trot", trot_cycle=0.05))
     scn = sweep.random_scenarios(cfg, 4, seed=0, use_native=False,
                                  device=dev)
+    graph.clear()
     before = (cuda_chol.chol_factor.launches, cuda_chol.chol_sub.launches,
               cuda_riccati.solve_stage_qp_resident.launches)
     res = sweep.run_batch(cfg, scn, 1)
@@ -469,6 +473,9 @@ def test_closed_loop_runs_through_the_kernels(dev):
              cuda_riccati.solve_stage_qp_resident.launches)
     # per tick: 2 + 2 x 15 WBC factors and 4 mass-matrix factors
     assert after[0] - before[0] == 20 * (2 + 2 * 15 + 4)
+    (entry,) = graph.entries()
+    assert entry.launches[0] == 2 + 2 * 15 + 4
+    assert after[1] - before[1] == 20 * entry.launches[1]
     assert after[1] > before[1] and after[2] == before[2] + 1
     assert bool(torch.isfinite(res.final_com).all())
     assert bool((res.upright > 0.98).all())
@@ -519,6 +526,134 @@ def test_sharded_sweep_on_one_card(dev):
     assert float((res.final_com - ref.final_com).abs().max()) <= 0.05
     assert int(res.fell.sum()) == int(ref.fell.sum())
     torch.testing.assert_close(stats["goal_dist"], res.goal_dist.mean())
+
+
+# ---------------------------------------------------------------------------
+# the closed loop's tick replayed as a captured CUDA graph (runtime/graph.py)
+# against the eager tick (loop._scan_ticks_eager), bit for bit
+# ---------------------------------------------------------------------------
+
+GRAPH_B = 16
+
+
+def _short_cycles(cfg, **gait):
+    """cfg with 20-tick cycles (depth cut for time; the tick is the CLI's)."""
+    import dataclasses
+    return cfg.replace(gait=dataclasses.replace(
+        cfg.gait, trot_cycle=0.05, crawl_cycle=0.05, **gait))
+
+
+def _eager(fn, *args):
+    """fn(*args) with the cycle's ticks run eagerly on the card."""
+    from apf_quadruped_tpu_torch.runtime import loop
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(loop, "_scan_ticks", loop._scan_ticks_eager)
+        return fn(*args)
+
+
+def _assert_bitwise(a, b):
+    la, lb = _leaves(a), _leaves(b)
+    assert len(la) == len(lb)
+    for i, (x, y) in enumerate(zip(la, lb)):
+        assert x.dtype == y.dtype and torch.equal(x, y), i
+
+
+def _graph_case(case, dev, seed=0):
+    """(cfg, terrain, targets, disturbances) of one bit-for-bit case."""
+    from apf_quadruped_tpu_torch.runtime import sweep
+    from apf_quadruped_tpu_torch.sim import terrain
+    mode = case if case in ("crawl", "adaptive") else "trot"
+    cfg = _short_cycles(sweep.cli_config(gait=mode),
+                        early_td=case != "trot")
+    scn = sweep.random_scenarios(cfg, GRAPH_B, seed=seed, use_native=False,
+                                 device=dev)
+    terr = (terrain.block(cfg.sim, batch=(GRAPH_B,), device=dev)
+            if case == "height" else sweep._terrain(cfg, scn))
+    return cfg, terr, scn.target_xy, scn.dist_sched
+
+
+def _two_cycles(cfg, terr, tgt, dist, dev):
+    from apf_quadruped_tpu_torch.runtime import loop
+    return loop.run(cfg, loop.init(cfg, GRAPH_B, device=dev), terr, tgt,
+                    dist, 2)
+
+
+@pytest.mark.parametrize("case", ["trot", "height", "early_td", "crawl",
+                                  "adaptive"])
+def test_graphed_tick_equals_eager(dev, case):
+    """Two cycles with the ticks replayed from the graph against the same
+    two cycles run eagerly: every LoopState leaf and CycleMetrics field
+    bit for bit.  trot: flat ground, early_td off; height: a height world
+    (cone_rot in the tick); early_td: flat ground with it; crawl and
+    adaptive: their gaits."""
+    from apf_quadruped_tpu_torch.runtime import graph
+    args = _graph_case(case, dev) + (dev,)
+    graph.clear()
+    graphed = _two_cycles(*args)
+    assert len(graph.entries()) == 1
+    _assert_bitwise(graphed, _eager(_two_cycles, *args))
+
+
+def test_graph_reused_for_other_scenarios(dev):
+    """A second batch of other scenarios of the same shape replays the
+    cached graph (no capture) and equals its eager run bit for bit; the
+    first batch's results, cloned out of the buffers, are left as they
+    were."""
+    from apf_quadruped_tpu_torch.runtime import graph
+    graph.clear()
+    first = _two_cycles(*_graph_case("early_td", dev, seed=0), dev)
+    kept = [t.clone() for t in _leaves(first)]
+    (entry,) = graph.entries()
+    args = _graph_case("early_td", dev, seed=1) + (dev,)
+    second = _two_cycles(*args)
+    assert graph.entries() == [entry]
+    _assert_bitwise(second, _eager(_two_cycles, *args))
+    _assert_bitwise(first, kept)
+    assert not all(torch.equal(a, b) for a, b in zip(_leaves(first),
+                                                     _leaves(second)))
+
+
+def test_graphed_shards_on_one_card(dev):
+    """step_batch_sharded over ["cuda:0", "cuda:0"]: the second shard
+    replays the first shard's graph; both equal their eager runs bit for
+    bit, and the gathered result agrees with run_batch within
+    tests/test_sweep.py's gate."""
+    from apf_quadruped_tpu_torch.parallel import mesh as mesh_mod
+    from apf_quadruped_tpu_torch.runtime import graph, sweep
+    cfg = _short_cycles(sweep.cli_config())
+    scn = sweep.random_scenarios(cfg, GRAPH_B, seed=2, use_native=False,
+                                 device=dev)
+    m = mesh_mod.scenario_mesh(["cuda:0", "cuda:0"])
+
+    def sharded():
+        return sweep.step_batch_sharded(
+            cfg, mesh_mod.shard_batch(m, scn),
+            mesh_mod.shard_batch(m, sweep.init_batch(cfg, scn)), 2, m)
+
+    graph.clear()
+    graphed = sharded()
+    assert len(graph.entries()) == 1
+    _assert_bitwise(graphed, _eager(sharded))
+    ref = sweep.step_batch(cfg, scn, sweep.init_batch(cfg, scn), 2)
+    com = mesh_mod.gather(m, graphed[1]).com
+    assert float((com - ref[1].com).abs().max()) <= 0.05
+
+
+def test_graph_capture_failure_raises(dev):
+    """A step that reads a value back to the host cannot be captured: the
+    capture raises and nothing runs the step eagerly instead."""
+    from apf_quadruped_tpu_torch.runtime import graph
+
+    def step(inputs, carry, k, outs):
+        (x,) = carry
+        return (x + 1.0 if bool(x.sum() > 0) else x - 1.0,)
+
+    cached = graph.entries()
+    with pytest.raises(RuntimeError):
+        graph.scan(("host read",), step, (), (torch.ones(4, device=dev),),
+                   (), 3)
+    torch.cuda.synchronize()
+    assert graph.entries() == cached
 
 
 def test_spd_route_above_kernel_size_launches_nothing(rng, dev):

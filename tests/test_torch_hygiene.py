@@ -57,6 +57,7 @@ SLICE = ["apf_quadruped_tpu_torch", "apf_quadruped_tpu_torch.config",
          "apf_quadruped_tpu_torch.sim.physics",
          "apf_quadruped_tpu_torch.runtime.observer",
          "apf_quadruped_tpu_torch.runtime.loop",
+         "apf_quadruped_tpu_torch.runtime.graph",
          "apf_quadruped_tpu_torch.runtime.sweep",
          "apf_quadruped_tpu_torch.runtime.native",
          "apf_quadruped_tpu_torch.runtime.checkpoint",
