@@ -1,4 +1,4 @@
-"""The device rule of the port's entry points.
+"""The device rule of the port's entry points, and its device constants.
 
 The entry points a user calls (`problems.bench_problem`,
 `runtime.sweep.random_scenarios`, `runtime.loop.init`,
@@ -10,6 +10,8 @@ is no silent fallback.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -23,3 +25,14 @@ def resolve_device(device, ask_cpu: str = "device='cpu'") -> torch.device:
             f"no CUDA device is available (torch.cuda.is_available() is "
             f"False): pass {ask_cpu} to run on the CPU")
     return device
+
+
+@functools.lru_cache(maxsize=None)
+def constant(value, dtype, device) -> torch.Tensor:
+    """torch.tensor(value, dtype, device), built once per (value, dtype,
+    device) and shared: never write into it.  A copy from host memory on
+    every call would wait for the device, and a captured CUDA graph
+    (runtime/graph.py) cannot hold one.  `value` is a number or a tuple of
+    them, compared by value (0.0 and -0.0 share an entry): the callers
+    pass configuration values and fixed literals."""
+    return torch.tensor(value, dtype=dtype, device=device)

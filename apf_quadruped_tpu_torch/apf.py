@@ -17,6 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ._device import constant
 from .config import ApfConfig, RobotConfig
 from .models.dogbot import LEG_SIGNS
 
@@ -158,7 +159,7 @@ def navigate(cfg: ApfConfig, state: ApfState, feet_xy, com_xy,
 
     vers = repulsive_versors(dtype, robot, dev)
     if cfg.min_exit:
-        lat = torch.tensor([1.0, 0.0], dtype=dtype, device=dev)
+        lat = constant((1.0, 0.0), dtype, dev)
         f_rep = (cfg.rep_gain_minexit * rob[..., None] * vers
                  + cfg.lat_gain_minexit * comb[..., None, None] * lat)
     else:
@@ -176,7 +177,7 @@ def navigate(cfg: ApfConfig, state: ApfState, feet_xy, com_xy,
 
     if robot is not None:
         nominal = com_des[..., None, :] + _stance_offsets(robot, dtype, dev)
-        dev_xy = torch.tensor(robot.max_dev[:2], dtype=dtype, device=dev)
+        dev_xy = constant(tuple(robot.max_dev[:2]), dtype, dev)
         step_targets = torch.clamp(step_targets, nominal - dev_xy,
                                    nominal + dev_xy)
 

@@ -8,9 +8,12 @@ are the stacked world-frame ground-reaction forces of (BR, BL, FL, FR).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
+from .._device import constant
 from ..config import RobotConfig
 from ..ops.rotations import (inertia_tensor, omega_world_to_euler_rate,
                              rpy_to_rot, skew)
@@ -27,14 +30,15 @@ def srb_derivative(cfg: RobotConfig, rpy, r, omega, v, feet_w, forces):
     Returns (rpy_dot, r_dot, omega_dot, v_dot).
     """
     R = rpy_to_rot(rpy)
-    I_b = inertia_tensor(torch.as_tensor(cfg.inertia, dtype=rpy.dtype,
-                                         device=rpy.device))
+    I_b = inertia_tensor(constant(cfg.inertia, rpy.dtype, rpy.device))
     I_w = R @ I_b @ R.transpose(-1, -2)
     f_tot = forces.sum(dim=-2)
     tau = torch.linalg.cross(feet_w - r[..., None, :], forces).sum(dim=-2)
     gyro = torch.linalg.cross(omega, (I_w @ omega[..., None])[..., 0])
-    omega_dot = torch.linalg.solve(I_w, (tau - gyro)[..., None])[..., 0]
-    g = torch.tensor([0.0, 0.0, -GRAVITY], dtype=rpy.dtype, device=rpy.device)
+    # solve_ex: linalg.solve's factorization without its host-side check
+    omega_dot = torch.linalg.solve_ex(I_w, (tau - gyro)[..., None],
+                                      check_errors=False)[0][..., 0]
+    g = constant((0.0, 0.0, -GRAVITY), rpy.dtype, rpy.device)
     v_dot = f_tot / cfg.mass + g
     rpy_dot = (omega_world_to_euler_rate(rpy) @ omega[..., None])[..., 0]
     return rpy_dot, v, omega_dot, v_dot
@@ -48,6 +52,15 @@ def pack_state(rpy, r, omega, v):
 
 def unpack_state(x):
     return x[..., 0:3], x[..., 3:6], x[..., 6:9], x[..., 9:12]
+
+
+@functools.lru_cache(maxsize=None)
+def _body_inertia_inv(cfg: RobotConfig, dtype, device) -> torch.Tensor:
+    """I_b^-1 (3, 3), inverted in float64 on the host, then cast."""
+    ixx, iyy, izz, ixy, ixz, iyz = cfg.inertia
+    I_b = np.array([[ixx, ixy, ixz], [ixy, iyy, iyz], [ixz, iyz, izz]],
+                   np.float64)
+    return torch.as_tensor(np.linalg.inv(I_b), dtype=dtype, device=device)
 
 
 def linearize_discrete(cfg: RobotConfig, yaw_ref, r_ref, feet_w, contact,
@@ -65,17 +78,13 @@ def linearize_discrete(cfg: RobotConfig, yaw_ref, r_ref, feet_w, contact,
     rpy0 = torch.stack([zero, zero, yaw_ref], dim=-1)
     Einv = omega_world_to_euler_rate(rpy0)                 # (.., 3, 3)
     R = rpy_to_rot(rpy0)
-    ixx, iyy, izz, ixy, ixz, iyz = cfg.inertia
-    I_b = np.array([[ixx, ixy, ixz], [ixy, iyy, iyz], [ixz, iyz, izz]],
-                   np.float64)
-    I_b_inv = torch.as_tensor(np.linalg.inv(I_b), dtype=dtype, device=device)
-    I_w_inv = torch.einsum("...ij,jk,...lk->...il", R, I_b_inv, R)
+    I_w_inv = torch.einsum("...ij,jk,...lk->...il", R,
+                           _body_inertia_inv(cfg, dtype, device), R)
 
-    dts = torch.tensor(dt, dtype=dtype, device=device)
+    dts = constant(dt, dtype, device)
     eye3 = torch.eye(3, dtype=dtype, device=device)
     A = torch.zeros(batch + (NX, NX), dtype=dtype, device=device)
-    diag = torch.arange(NX, device=device)
-    A[..., diag, diag] = 1.0
+    A.diagonal(dim1=-2, dim2=-1).fill_(1.0)
     A[..., 0:3, 6:9] = dts * Einv                          # rpy' = Einv w
     A[..., 3:6, 9:12] = dts * eye3                         # r' = v
     A[..., 11, 12] = -GRAVITY * dt                         # v' gravity

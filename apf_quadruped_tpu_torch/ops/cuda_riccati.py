@@ -53,6 +53,7 @@ import math
 import torch
 
 from .. import _kernels
+from .._device import constant
 from .._precision import highest_precision
 from ..config import SolverConfig
 from .riccati import (StageQP, StageSolution, WarmStart, _mtv, _mv,
@@ -513,7 +514,7 @@ def _fused_impl(qp: StageQP, cfg: SolverConfig,
     z = torch.clamp(r0, min=0.0) + 1.0
     if warm is not None:
         v = flat(warm.valid, ())[:, None, None] > 0.5
-        floor = torch.as_tensor(cfg.warm_floor, dtype=dt, device=dev)
+        floor = constant(cfg.warm_floor, dt, dev)
         u = torch.where(v, flat(warm.u, (H, nu)), u)
         z = torch.where(v, torch.maximum(flat(warm.z, (H, m)), floor), z)
         s = torch.where(v, torch.maximum(flat(warm.s, (H, m)), floor), s)

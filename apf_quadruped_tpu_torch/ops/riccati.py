@@ -28,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 
+from .._device import constant
 from .._precision import highest_precision
 from ..config import SolverConfig
 
@@ -155,7 +156,7 @@ def _solve_impl(qp: StageQP, cfg: SolverConfig,
     M = qp.h.shape[-1]
 
     def const(v):
-        return torch.as_tensor(v, dtype=dt, device=dev)
+        return constant(v, dt, dev)
 
     mask = qp.mask.to(dt)                                   # (.., H, M)
     G = qp.G.to(dt)
@@ -343,8 +344,11 @@ def _solve_impl(qp: StageQP, cfg: SolverConfig,
     it_conv = torch.full(batch, cfg.iters, dtype=torch.int32, device=dev)
     for it in range(cfg.iters):
         # a lane that is done takes zero steps from then on, so once every
-        # lane is done the remaining iterations change nothing
-        if bool(done.all()):
+        # lane is done the remaining iterations change nothing, unless a
+        # step is not finite (0 * inf is NaN).  The CPU leaves the loop
+        # then; the card runs every iteration, as the JAX scan does, with
+        # no host read, so that a plan can be captured as a CUDA graph
+        if dev.type == "cpu" and bool(done.all()):
             break
         x_t, rx_t, rz_t, rzx_t, mu, res = measure(u_t, z_t, s_t, zx_t, sx_t)
         now = (res < cfg.reltol) & (mu < cfg.abstol)

@@ -21,21 +21,29 @@ config and the tensors' device:
     (n = 12H) through ops.qpsolve.solve_qp, kept to cross-validate the
     base_box / base_acc rows; it ignores warm starts and sqp_iters;
   * "auto": "riccati_resident" on a CUDA device, "riccati" on the CPU.
+
+On the card a plan is one replay of its captured CUDA graph
+(runtime/graph.call: the counterpart of the JAX package's jitted `plan`),
+bit for bit the eager body `_plan_eager`, which the CPU runs.  The
+constants a plan reads are built once per (cfg, dtype, device).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ._device import constant
 from ._precision import highest_precision
 from .config import EngineConfig
 from .models import srb
 from .ops.cuda_riccati import solve_stage_qp_fused, solve_stage_qp_resident
 from .ops.qpsolve import QPData, QPSolution, solve_qp
 from .ops.riccati import StageQP, WarmStart, solve_stage_qp
+from .runtime import graph
 
 ROWS_PER_FOOT = 6   # fz<=fmax, -fz<=-fmin, +-fx-mu fz<=0, +-fy-mu fz<=0
 
@@ -154,8 +162,23 @@ def plan(cfg: EngineConfig, state0, refs: MpcRefs,
 
     state0: (.., NX) packed SRB state (srb.pack_state); refs: contact and
     foothold schedules, state references.  warm: optional WarmStart from
-    the previous replan (world-frame forces).  Runs with TF32 off.
+    the previous replan (world-frame forces).  Runs with TF32 off.  On
+    CUDA tensors a replay of the plan's graph, captured per configuration,
+    backend and layout of (state0, refs, warm); on the CPU the eager body.
     """
+    if state0.device.type == "cuda":
+        backend = effective_backend(cfg, state0.device)
+        if backend == "condensed":
+            warm = None     # it takes no warm start: one graph serves both
+        return graph.call(("plan", cfg, backend),
+                          lambda args: _plan_eager(cfg, *args),
+                          (state0, refs, warm))
+    return _plan_eager(cfg, state0, refs, warm)
+
+
+def _plan_eager(cfg: EngineConfig, state0, refs: MpcRefs,
+                warm: WarmStart | None = None) -> MpcPlan:
+    """plan's body, run op by op."""
     backend = effective_backend(cfg, state0.device)
     with highest_precision():
         if backend == "condensed":
@@ -163,10 +186,47 @@ def plan(cfg: EngineConfig, state0, refs: MpcRefs,
         return _plan_riccati(cfg, state0, refs, backend, warm)
 
 
+@functools.lru_cache(maxsize=None)
 def _mpc_costs(cfg: EngineConfig, dtype, device=None):
     mpc = cfg.mpc
     return torch.tensor([mpc.w_att] * 3 + [mpc.w_pos] * 3 + [mpc.w_omega] * 3
                         + [mpc.w_vel] * 3 + [0.0], dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _pyramid_tensors(cfg: EngineConfig, dtype, device):
+    """The per-knot pyramid block G (24, 12) and rhs h (24,)."""
+    blk, rhs_blk = _pyramid_constants(cfg)
+    return (torch.as_tensor(blk, dtype=dtype, device=device),
+            torch.as_tensor(rhs_blk, dtype=dtype, device=device))
+
+
+@functools.lru_cache(maxsize=None)
+def _condensed_pyramid(cfg: EngineConfig, dtype, device):
+    """The pyramids over the horizon, kron(I_H, G) and tile(h, H)."""
+    blk, rhs_blk = _pyramid_constants(cfg)
+    Hh = cfg.mpc.horizon
+    return (torch.as_tensor(np.kron(np.eye(Hh), blk), dtype=dtype,
+                            device=device),
+            torch.as_tensor(np.tile(rhs_blk, Hh), dtype=dtype,
+                            device=device))
+
+
+@functools.lru_cache(maxsize=None)
+def _base_box_rows(dtype, device):
+    """Cx (6, NX) of the base_box state rows: +-(roll, pitch, z)."""
+    Cx_np = np.zeros((6, srb.NX))
+    for i, d in enumerate((0, 1, 5)):                  # roll, pitch, z
+        Cx_np[i, d] = 1.0
+        Cx_np[3 + i, d] = -1.0
+    return torch.as_tensor(Cx_np, dtype=dtype, device=device)
+
+
+def _acc_rhs(cfg: EngineConfig, dtype, device):
+    """The base_acc rows' bounds (6,): angular, then linear, times dt."""
+    mpc = cfg.mpc
+    return constant((mpc.acc_ang_max,) * 3 + (mpc.acc_lin_max,) * 3, dtype,
+                    device) * mpc.dt
 
 
 def _linearizations(cfg: EngineConfig, refs: MpcRefs):
@@ -213,21 +273,15 @@ def stage_qp(cfg: EngineConfig, state0, refs: MpcRefs, A=None,
     if refs.cone_rot is not None:
         B = _rotate_B(B, refs.cone_rot)
     q_diag = _mpc_costs(cfg, dtype, dev)
-    blk, rhs_blk = _pyramid_constants(cfg)
     mask = torch.repeat_interleave(refs.contacts, ROWS_PER_FOOT, dim=-1)
 
     # opt-in BaseRom box (towr base_motion_constraint.cc:46-55: roll and
     # pitch in +-dev_rad, base z in [z0 - below, z0 + above]) as state rows
     Cx = cx = mask_x = None
     if mpc.base_box:
-        dims = (0, 1, 5)                               # roll, pitch, z
-        Cx_np = np.zeros((6, srb.NX))
-        for i, d in enumerate(dims):
-            Cx_np[i, d] = 1.0
-            Cx_np[3 + i, d] = -1.0
-        Cx = torch.as_tensor(Cx_np, dtype=dtype, device=dev)
+        Cx = _base_box_rows(dtype, dev)
         z0 = state0[..., 5]
-        dev_rad = torch.tensor(mpc.base_dev_rad, dtype=dtype, device=dev)
+        dev_rad = constant(mpc.base_dev_rad, dtype, dev)
         his = torch.stack([dev_rad + 0.0 * z0, dev_rad + 0.0 * z0,
                            z0 + mpc.base_z_above], dim=-1)
         los = torch.stack([-dev_rad + 0.0 * z0, -dev_rad + 0.0 * z0,
@@ -239,16 +293,13 @@ def stage_qp(cfg: EngineConfig, state0, refs: MpcRefs, A=None,
 
     # base-acceleration bounds (towr BaseAcc analogue) as per-knot input
     # rows derived inside the solver (StageQP.acc_rhs)
-    acc_rhs = None
-    if mpc.base_acc:
-        acc_rhs = torch.tensor([mpc.acc_ang_max] * 3 + [mpc.acc_lin_max] * 3,
-                               dtype=dtype, device=dev) * mpc.dt
+    acc_rhs = _acc_rhs(cfg, dtype, dev) if mpc.base_acc else None
+    G, h = _pyramid_tensors(cfg, dtype, dev)
     return StageQP(
         A=A, B=B, Q=torch.diag(q_diag), qlin=-refs.x_ref * q_diag,
         R=mpc.w_force * torch.eye(srb.NU, dtype=dtype, device=dev),
-        G=torch.as_tensor(blk, dtype=dtype, device=dev),
-        h=torch.as_tensor(rhs_blk, dtype=dtype, device=dev), mask=mask,
-        x0=state0, Cx=Cx, cx=cx, mask_x=mask_x, acc_rhs=acc_rhs)
+        G=G, h=h, mask=mask, x0=state0, Cx=Cx, cx=cx, mask_x=mask_x,
+        acc_rhs=acc_rhs)
 
 
 def _plan_riccati(cfg: EngineConfig, state0, refs: MpcRefs, backend: str,
@@ -328,12 +379,10 @@ def _plan_condensed(cfg: EngineConfig, state0, refs: MpcRefs) -> MpcPlan:
     P = P + mpc.w_force * torch.eye(Hh * NU, **opts)
     qv = torch.einsum("...hni,...hn->...i", SuQ, err0)
 
-    blk, rhs_blk = _pyramid_constants(cfg)
     m_total = Hh * 4 * ROWS_PER_FOOT
-    G = torch.broadcast_to(torch.as_tensor(np.kron(np.eye(Hh), blk), **opts),
-                           batch + (m_total, Hh * NU))
-    h = torch.broadcast_to(torch.as_tensor(np.tile(rhs_blk, Hh), **opts),
-                           batch + (m_total,))
+    G_all, h_all = _condensed_pyramid(cfg, dtype, dev)
+    G = torch.broadcast_to(G_all, batch + (m_total, Hh * NU))
+    h = torch.broadcast_to(h_all, batch + (m_total,))
     ineq_mask = torch.repeat_interleave(refs.contacts, ROWS_PER_FOOT,
                                         dim=-1).reshape(batch + (m_total,))
     Gs, hs, ms = [G], [h], [ineq_mask]
@@ -343,14 +392,14 @@ def _plan_condensed(cfg: EngineConfig, state0, refs: MpcRefs) -> MpcPlan:
         # roll/pitch in +-dev_rad, base z in [z0 - below, z0 + above],
         # exact on the condensed form x_k = Sx_x0 + Su U: two rows on U per
         # knot per dim
-        dims = [0, 1, 5]
+        dims = constant((0, 1, 5), torch.int64, dev)    # roll, pitch, z
         z0 = state0[..., 5]
-        dev_rad = torch.tensor(mpc.base_dev_rad, **opts)
+        dev_rad = constant(mpc.base_dev_rad, dtype, dev)
         los = torch.stack([-dev_rad + 0.0 * z0, -dev_rad + 0.0 * z0,
                            z0 - mpc.base_z_below], dim=-1)
         his = torch.stack([dev_rad + 0.0 * z0, dev_rad + 0.0 * z0,
                            z0 + mpc.base_z_above], dim=-1)
-        Su_d, Sx_d = Su[..., :, dims, :], Sx_x0[..., :, dims]
+        Su_d, Sx_d = Su.index_select(-2, dims), Sx_x0.index_select(-1, dims)
         n_box = Hh * 2 * len(dims)
         Gs.append(torch.cat([Su_d, -Su_d], dim=-2)
                   .reshape(batch + (n_box, Hh * NU)))
@@ -363,8 +412,7 @@ def _plan_condensed(cfg: EngineConfig, state0, refs: MpcRefs) -> MpcPlan:
         # per-knot input rows +-B_k[6:12,:] u_k <= acc_rhs -+ A_k[6:12,12]
         # (StageQP.acc_rhs), block diagonal on the stacked U
         SB, off = B[..., 6:12, :], A[..., 6:12, 12]
-        rhs6 = torch.tensor([mpc.acc_ang_max] * 3 + [mpc.acc_lin_max] * 3,
-                            **opts) * mpc.dt
+        rhs6 = _acc_rhs(cfg, dtype, dev)
         Gacc = torch.einsum("hk,...hrc->...hrkc", torch.eye(Hh, **opts),
                             SB).reshape(batch + (Hh * 6, Hh * NU))
         Gs += [Gacc, -Gacc]

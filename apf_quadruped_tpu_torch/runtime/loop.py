@@ -9,13 +9,18 @@ Port of apf_quadruped_tpu/runtime/loop.py.  One replan cycle:
      and the momentum observer updated every tick.
 
 Every LoopState field carries the scenario axis in front.  The JAX module
-scans a single-scenario tick (`lax.scan`, compiled with the cycle) and
-vmaps it; here the tick, `_tick`, is batched, and nothing in it reads a
-value back to the host.  `_scan_ticks` steps through a cycle's ticks: on
-the card it replays a CUDA graph of one tick once a tick (runtime/graph.py:
-captured at the first cycle of a configuration and shape, the same
-kernels on the same data as the eager tick, bit for bit), on the CPU it
-runs the eager tick in a Python loop.  The cycle loop is a Python loop.
+compiles a cycle (`run_cycle`, jitted) that scans a single-scenario tick
+(`lax.scan`) and vmaps it; here the cycle is batched and split in three:
+the head (`_cycle_head`: navigation, foothold, references, the plan, the
+warm-start stash), the ticks (`_scan_ticks` over the batched `_tick`) and
+the tail (`_cycle_tail`: the metrics and the next LoopState).  On the card
+the head and the tail are one replay each of their captured CUDA graphs
+(runtime/graph.call; the plan is captured inside the head's) and the
+ticks replay a CUDA graph of one tick once a tick (runtime/graph.scan);
+each graph is captured at the first cycle of a configuration and shape
+and runs the same kernels on the same data as the eager code, bit for
+bit.  The CPU runs the eager head, ticks and tail; nothing in them reads
+a value back to the host.  The cycle loop is a Python loop.
 Gait modes (GaitConfig.mode): "trot"
 alternates trot pair A / pair B per cycle; "crawl" walks one leg at a time;
 "adaptive" switches to the crawl combo per lane from the robustness EWMA;
@@ -31,7 +36,7 @@ import numpy as np
 import torch
 
 from .. import apf, foothold, gait, planner, swing, wbc
-from .._device import resolve_device
+from .._device import constant, resolve_device
 from .._precision import highest_precision
 from ..config import EngineConfig
 from ..models import rbd, srb
@@ -275,6 +280,29 @@ def _scan_ticks(cfg: EngineConfig, cyc: _CycleInputs, carry, n_ticks: int):
     return carry, trace
 
 
+class _TailInputs(NamedTuple):
+    """What a cycle's tail reads of its head (each (B, ..))."""
+
+    cycle_idx: torch.Tensor      # int32, the next cycle's index
+    crawling: torch.Tensor       # bool
+    warm_next: tuple             # the next warm_u, z, s, valid, flag
+    com_des: torch.Tensor        # (B, 2)
+    rob_mean: torch.Tensor
+    fake_crawl: torch.Tensor     # bool
+    mpc_converged: torch.Tensor  # bool
+    mpc_iters: torch.Tensor      # int32
+    foot_mu: torch.Tensor
+
+
+class _CycleHead(NamedTuple):
+    """What a cycle's head hands its ticks and its tail."""
+
+    cyc: _CycleInputs
+    carry: tuple               # the ticks' initial carry
+    n_ticks: int
+    tail: _TailInputs
+
+
 def run_cycle(cfg: EngineConfig, st: LoopState, terr: terrain_mod.Terrain,
               target_xy: torch.Tensor,
               dist_sched: torch.Tensor) -> tuple[LoopState, CycleMetrics]:
@@ -282,12 +310,29 @@ def run_cycle(cfg: EngineConfig, st: LoopState, terr: terrain_mod.Terrain,
     track.  terr holds (B, res, res) grids, target_xy (B, 2), dist_sched
     (B, n_events, 8).  Runs with TF32 off throughout."""
     with highest_precision():
-        return _run_cycle_impl(cfg, st, terr, target_xy, dist_sched)
+        head = _cycle_head(cfg, st, terr, target_xy, dist_sched)
+        carry, trace = _scan_ticks(cfg, head.cyc, head.carry, head.n_ticks)
+        return _cycle_tail(cfg, head.tail, carry, trace)
 
 
-def _run_cycle_impl(cfg: EngineConfig, st: LoopState,
-                    terr: terrain_mod.Terrain, target_xy: torch.Tensor,
-                    dist_sched: torch.Tensor):
+def _cycle_head(cfg: EngineConfig, st: LoopState,
+                terr: terrain_mod.Terrain, target_xy: torch.Tensor,
+                dist_sched: torch.Tensor) -> _CycleHead:
+    """The cycle before its ticks: on the card a replay of its captured
+    CUDA graph (runtime/graph.call, the plan captured inside it), on the
+    CPU the eager head."""
+    if st.sim.q.device.type != "cuda":
+        return _cycle_head_eager(cfg, st, terr, target_xy, dist_sched)
+    return graph.call(("cycle head", cfg),
+                      lambda args: _cycle_head_eager(cfg, *args),
+                      (st, terr, target_xy, dist_sched))
+
+
+def _cycle_head_eager(cfg: EngineConfig, st: LoopState,
+                      terr: terrain_mod.Terrain, target_xy: torch.Tensor,
+                      dist_sched: torch.Tensor) -> _CycleHead:
+    """Navigation, foothold, references, the plan and the warm-start stash,
+    op by op."""
     sim0 = st.sim
     dtype, dev = sim0.q.dtype, sim0.q.device
     B = sim0.q.shape[0]
@@ -344,18 +389,21 @@ def _run_cycle_impl(cfg: EngineConfig, st: LoopState,
     # is leg-permuted BR<->BL, FL<->FR; the other modes reuse one schedule
     if warm_on:
         if cfg.gait.mode == "trot":
-            perm = [1, 0, 3, 2]
+            def legs(v):
+                return v.index_select(2, constant((1, 0, 3, 2),
+                                                  torch.int64, dev))
             flag_for = 3 - gait_flag
         else:
-            perm = [0, 1, 2, 3]
+            def legs(v):
+                return v
             flag_for = gait_flag
-        u_next = plan.forces[:, :, perm, :].reshape(B, Hh, 12)
+        u_next = legs(plan.forces).reshape(B, Hh, 12)
 
         def permute_rows(v):
             # the first 24 rows are the per-leg pyramid (4 legs x 6) and
             # move with the legs; extra (base_acc) rows are leg-agnostic
             v = v.reshape(B, Hh, -1)
-            pyr = v[..., :24].reshape(B, Hh, 4, 6)[:, :, perm, :]
+            pyr = legs(v[..., :24].reshape(B, Hh, 4, 6))
             return torch.cat([pyr.reshape(B, Hh, 24), v[..., 24:]], dim=-1)
         warm_next = (u_next, permute_rows(plan.sol.z),
                      permute_rows(plan.sol.s),
@@ -364,7 +412,7 @@ def _run_cycle_impl(cfg: EngineConfig, st: LoopState,
         warm_next = (st.warm_u, st.warm_z, st.warm_s, st.warm_valid,
                      st.warm_flag)
 
-    # ---- 3. 400 Hz tracking -------------------------------------------
+    # ---- 3. the ticks' inputs ------------------------------------------
     # knot coordinate of tick k = k sim.dt / mpc.dt, with the ratio folded
     # in the working precision: XLA folds the JAX module's t / mpc.dt so,
     # and on a knot boundary (k = 30 in float64, k = 50 in float32) the
@@ -376,35 +424,61 @@ def _run_cycle_impl(cfg: EngineConfig, st: LoopState,
         # knot states including t = 0 for first-order-hold references
         states_knots=torch.cat([x0[:, None], plan.states], dim=1),
         forces=plan.forces, terr=terr, dist_sched=dist_sched,
-        g_vec=torch.tensor([0.0, 0.0, -srb.GRAVITY], dtype=dtype, device=dev),
+        g_vec=constant((0.0, 0.0, -srb.GRAVITY), dtype, dev),
         zeros3=torch.zeros((B, 3), dtype=dtype, device=dev),
         knot_ratio=float(np_dtype(cfg.sim.dt)
                          * (np_dtype(1.0) / np_dtype(cfg.mpc.dt))))
     no_td = torch.zeros((B, 4), dtype=torch.bool, device=dev)
-    carry = (sim0, ast, no_td, feet_w, no_td.clone(), st.obs)
-    carry, tr = _scan_ticks(cfg, cyc, carry, n_ticks)
-    sim_st, ast, _, _, _, obs = carry
-    tr = dict(zip(TRACE, tr))
+    return _CycleHead(
+        cyc=cyc, carry=(sim0, ast, no_td, feet_w, no_td.clone(), st.obs),
+        n_ticks=n_ticks, tail=_TailInputs(
+            cycle_idx=st.cycle_idx + 1, crawling=crawling,
+            warm_next=warm_next, com_des=nav.com_des,
+            rob_mean=nav.rob_mean, fake_crawl=nav.fake_crawl,
+            mpc_converged=plan.sol.converged,
+            mpc_iters=plan.sol.iters.to(torch.int32),
+            foot_mu=terrain_mod.sample_mu(terr, step_xy).mean(dim=-1)))
 
-    com_end = rbd.com_position(robot, sim_st.p_base, sim_st.R_wb, sim_st.q)
+
+def _cycle_tail(cfg: EngineConfig, tail: _TailInputs, carry,
+                trace) -> tuple[LoopState, CycleMetrics]:
+    """The cycle after its ticks: on the card a replay of its captured
+    CUDA graph (runtime/graph.call), on the CPU the eager tail."""
+    if carry[0].q.device.type != "cuda":
+        return _cycle_tail_eager(cfg, tail, carry, trace)
+    return graph.call(("cycle tail", cfg),
+                      lambda args: _cycle_tail_eager(cfg, *args),
+                      (tail, carry, trace))
+
+
+def _cycle_tail_eager(cfg: EngineConfig, tail: _TailInputs, carry,
+                      trace) -> tuple[LoopState, CycleMetrics]:
+    """The next LoopState and the cycle's metrics (reductions over the
+    ticks' trace), op by op."""
+    sim_st, ast, _, _, _, obs = carry
+    tr = dict(zip(TRACE, trace))
+    dtype = sim_st.q.dtype
+    com_end = rbd.com_position(cfg.robot, sim_st.p_base, sim_st.R_wb,
+                               sim_st.q)
     metrics = CycleMetrics(
         com=com_end,
-        com_err=torch.linalg.vector_norm(com_end[..., 0:2] - nav.com_des,
+        com_err=torch.linalg.vector_norm(com_end[..., 0:2] - tail.com_des,
                                          dim=-1),
-        rob_mean=nav.rob_mean, fake_crawl=nav.fake_crawl,
+        rob_mean=tail.rob_mean, fake_crawl=tail.fake_crawl,
         qp_converged=tr["conv"].to(dtype).mean(dim=-1),
-        mpc_converged=plan.sol.converged,
-        mpc_iters=plan.sol.iters.to(torch.int32),
-        crawling=crawling,
+        mpc_converged=tail.mpc_converged,
+        mpc_iters=tail.mpc_iters,
+        crawling=tail.crawling,
         slip_ticks=tr["slip"].to(dtype).mean(dim=-1),
         tau_max=tr["taumax"].amax(dim=-1),
         qdd_max=tr["qdd"].amax(dim=-1),
-        foot_mu=terrain_mod.sample_mu(terr, step_xy).mean(dim=-1),
+        foot_mu=tail.foot_mu,
         track_err=tr["track"].mean(dim=-1),
         early_td_frac=tr["td"].mean(dim=-1),
         wrench_est=obs.w, wrench_peak=tr["wpeak"].amax(dim=-1))
-    return LoopState(sim=sim_st, apf=ast, cycle_idx=st.cycle_idx + 1,
-                     crawling=crawling, warm_u=warm_next[0],
+    warm_next = tail.warm_next
+    return LoopState(sim=sim_st, apf=ast, cycle_idx=tail.cycle_idx,
+                     crawling=tail.crawling, warm_u=warm_next[0],
                      warm_z=warm_next[1], warm_s=warm_next[2],
                      warm_valid=warm_next[3], warm_flag=warm_next[4],
                      obs=obs), metrics

@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch / CUDA port (apf_quadruped_tpu_torch) on one GPU.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
+    python3 chip_smoke.py --phase 21   # the build, then phase 21 alone
 
 Phases; each raises on failure, so any failure exits non-zero:
   1. device: torch/CUDA versions, the card's name and power limit;
@@ -106,7 +107,20 @@ Phases; each raises on failure, so any failure exits non-zero:
      device's idle share, 20-tick cycles graphed and eager in turns, the
      launch calls a tick (phase 10), and the tick's device time by stage
      (references, WBC build, QP, torque map, physics, margin, observer
-     and trace), each stage captured alone and replayed.
+     and trace), each stage captured alone and replayed;
+ 21. the graphed plan and cycle head (runtime/graph.call): planner.plan
+     against its eager body (planner._plan_eager) bit for bit at B=2048,
+     H=20 for every backend and option (auto, with cone_rot, stage_bf16,
+     sqp_iters=2, base_box + base_acc; riccati_fused, with cone_rot,
+     stage_bf16; the scan; use_pallas; condensed at B=256), cold and warm,
+     a second problem through the cached graphs and a NaN lane;
+     sweep.run_batch at B=64 with the graphed head and tail against the
+     eager ones;
+     then, in turns with the eager plan, solves/s at B=2048 ("auto",
+     "riccati_fused") and replan latency p50/p99 at B=1 and B=64, each
+     graph's capture time and pool, the cycle's head and tail at the
+     CLI's sweep configuration (B=64, 1024), and phase 3's
+     production-shape parity counts beside them.
 Every kernel's record carries its least possible time on this card
 (`bound_ms`: the larger of its bytes over 3.35 TB/s and its float32
 operations over 67 TFLOP/s, counted from this run's inputs and, for the
@@ -131,6 +145,11 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W)
 PEAK_BYTES = 3.35e12          # HBM3, bytes/s
 PEAK_FP32 = 67e12             # float32 outside the tensor cores, flop/s
+
+
+# (tag, iters mismatches, lanes, lanes beyond atol, max |du|,|dx|, atol) of
+# every compare_solve call, which phase 21 reports beside its timings
+PARITY = []
 
 
 def check(cond, msg):
@@ -334,6 +353,14 @@ def turns_line(label, ws):
 
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx", "cudaGraphLaunch")
+
+
+def tick_graphs():
+    """The cached graphs of the ticks (graph.scan), without the cycle
+    heads' and plans' (graph.call)."""
+    from apf_quadruped_tpu_torch.runtime import graph
+
+    return [e for e in graph.entries() if e.k is not None]
 
 
 class eager_ticks:
@@ -1095,6 +1122,8 @@ def compare_solve(solver, qp, cfg_s, warm, tag, atol, min_frac):
     frac = float(agree.float().mean())
     within = float((err <= atol).float().mean())
     conv = float(ref.converged.float().mean())
+    PARITY.append((tag, int((~agree).sum()), agree.numel(),
+                   int((err > atol).sum()), float(err.max()), atol))
     print(f"[kernel] {tag}: conv {conv:.3f}, iters mismatches "
           f"{int((~agree).sum())}/{agree.numel()}, max|du|,|dx| "
           f"{float(err.max()):.3g}, lanes beyond atol {atol:g}: "
@@ -1765,20 +1794,20 @@ def graphed_tick(dev, card, main_path):
         args = case(name)
         graph.clear()
         graphed = two_cycles(*args)
-        one = len(graph.entries()) == 1
+        one = len(tick_graphs()) == 1
         with eager_ticks():
             same[name] = one and bitwise(graphed, two_cycles(*args))
     graph.clear()
     first = two_cycles(*case("early_td"))
     kept = [t.clone() for t in leaves(first)]
-    cached = graph.entries()
+    cached = {id(e) for e in graph.entries()}
     args = case("early_td", seed=1)
     second = two_cycles(*args)
     with eager_ticks():
         eager_second = two_cycles(*args)
     same["other scenarios through the cached graph"] = (
-        graph.entries() == cached and bitwise(second, eager_second)
-        and bitwise(first, kept))
+        {id(e) for e in graph.entries()} == cached
+        and bitwise(second, eager_second) and bitwise(first, kept))
     cfg = short(sweep.cli_config())
     scn = sweep.random_scenarios(cfg, B, seed=2, device=dev)
     m2 = mesh_mod.scenario_mesh(["cuda:0", "cuda:0"])
@@ -1790,7 +1819,7 @@ def graphed_tick(dev, card, main_path):
 
     graph.clear()
     graphed = sharded()
-    one = len(graph.entries()) == 1
+    one = len(tick_graphs()) == 1
     with eager_ticks():
         same["two shards on one card"] = one and bitwise(graphed, sharded())
     print(f"[graph] B={B}, {cycles} cycles of 20 ticks, graphed against "
@@ -1829,7 +1858,7 @@ def graphed_tick(dev, card, main_path):
             loop._scan_ticks = real
         torch.cuda.synchronize()
         capturing = time.perf_counter() - t
-        (entry,) = graph.entries()
+        (entry,) = tick_graphs()
         # the device's span of each cycle's ticks: CUDA events around
         # graph.scan (the copies in, the replays, the copies out)
         walls, spans = [], []
@@ -1875,7 +1904,8 @@ def graphed_tick(dev, card, main_path):
               f"bytes; the device's span of a cycle's ticks "
               f"{[round(v, 4) for v in spans]} s (CUDA events around "
               f"graph.scan), {1e3 * median(spans) / n_ticks:.4f} ms a tick; "
-              f"the rest of the cycle (navigation, plan, metrics) "
+              f"the rest of the cycle (its head's replay: navigation and "
+              f"plan; the metrics) "
               f"{[round(w - v, 4) for w, v in zip(walls, spans)]} s, "
               f"{[round(v, 2) for v in idle]}% of a cycle, in which the "
               f"ticks leave the device idle; a tick's device time "
@@ -1966,6 +1996,318 @@ def graphed_tick(dev, card, main_path):
               flush=True)
 
 
+class eager_plans:
+    """Within this block planner.plan and the cycle's head and tail run
+    their eager bodies on the card (planner._plan_eager,
+    loop._cycle_head_eager, loop._cycle_tail_eager), the graphs' plain
+    versions, for comparison."""
+
+    def __enter__(self):
+        from apf_quadruped_tpu_torch import planner
+        from apf_quadruped_tpu_torch.runtime import loop
+        self.real = planner.plan, loop._cycle_head, loop._cycle_tail
+        planner.plan = planner._plan_eager
+        loop._cycle_head = loop._cycle_head_eager
+        loop._cycle_tail = loop._cycle_tail_eager
+
+    def __exit__(self, *exc):
+        from apf_quadruped_tpu_torch import planner
+        from apf_quadruped_tpu_torch.runtime import loop
+        planner.plan, loop._cycle_head, loop._cycle_tail = self.real
+
+
+def percentile(xs, q):
+    return float(np.percentile(xs, q))
+
+
+def graphed_plan(dev, card):
+    """Phase 21: planner.plan and the cycle's head replayed from captured
+    CUDA graphs (runtime/graph.call) against their eager bodies
+    (planner._plan_eager, loop._cycle_head_eager).  Bit for bit, at
+    bench.py's problem B=2048, H=20 (the condensed backend at B=256):
+    every backend and option cold and warm, a second problem through the
+    two cached graphs, a NaN lane; sweep.run_batch at B=64, two 20-tick
+    cycles, the graphed head and tail against the eager head, plan and
+    tail.  Then, in
+    turns with the eager plan: solves/s at B=2048 for "auto" and
+    "riccati_fused"; replan latency p50/p99 at B=1 and B=64 (warm replans,
+    each fenced by torch.cuda.synchronize()), the host's enqueue time and
+    the graph's device time beside it; each graph's capture time and
+    pool; the cycle's head and tail, graphed and eager, at the CLI's
+    sweep configuration, B=64 and B=1024; and phase 3's production-shape
+    parity counts beside them."""
+    import dataclasses
+
+    import torch
+
+    from apf_quadruped_tpu_torch import planner, problems
+    from apf_quadruped_tpu_torch.config import (EngineConfig, MpcConfig,
+                                                SolverConfig)
+    from apf_quadruped_tpu_torch.ops import riccati
+    from apf_quadruped_tpu_torch.runtime import graph, loop, sweep
+    from apf_quadruped_tpu_torch.sim import terrain
+
+    def bitwise(a, b):
+        """Every tensor leaf equal in dtype and bits (NaN included), every
+        other leaf equal."""
+        la, lb = graph._tensors(a), graph._tensors(b)
+        if len(la) != len(lb):
+            return False
+        for x, y in zip(la, lb):
+            if x.dtype != y.dtype or x.shape != y.shape:
+                return False
+            if x.is_floating_point():
+                bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+                x = x.view(bits[x.element_size()])
+                y = y.view(bits[y.element_size()])
+            if not torch.equal(x, y):
+                return False
+        return True
+
+    def cfg_of(backend, H=20, mpc=None, solver=None):
+        return EngineConfig(mpc=MpcConfig(horizon=H, dt=0.025,
+                                          backend=backend, **(mpc or {})),
+                            solver=SolverConfig(**(solver or {})))
+
+    def problem(cfg, B, seed, cone=False):
+        x0, refs = problems.bench_problem(cfg, B, seed=seed, device=dev)
+        if cone:
+            gen = torch.Generator(dev).manual_seed(seed)
+            n = torch.randn(B, cfg.mpc.horizon, 4, 3, device=dev,
+                            generator=gen) * 0.2
+            n[..., 2] = 1.0
+            refs = refs._replace(cone_rot=terrain.basis_from_normal(
+                n / torch.linalg.vector_norm(n, dim=-1, keepdim=True)))
+        return x0, refs
+
+    def warm_of(out, B, H):
+        return riccati.WarmStart(
+            u=out.forces.reshape(B, H, 12), z=out.sol.z.reshape(B, H, -1),
+            s=out.sol.s.reshape(B, H, -1),
+            valid=torch.arange(B, device=dev) % 2 == 0)
+
+    # ---- (a) graphed against eager, bit for bit ---------------------------
+    t0 = time.perf_counter()
+    cases = {
+        "auto": ("auto", 2048, {}, {}, False),
+        "auto cone_rot": ("auto", 2048, {}, {}, True),
+        "auto stage_bf16": ("auto", 2048, {}, dict(stage_bf16=True), False),
+        "auto sqp_iters=2": ("auto", 2048, dict(sqp_iters=2), {}, False),
+        "auto base_box+base_acc": ("auto", 2048, dict(base_box=True,
+                                                      base_acc=True), {},
+                                   False),
+        "riccati_fused": ("riccati_fused", 2048, {}, {}, False),
+        "riccati_fused cone_rot": ("riccati_fused", 2048, {}, {}, True),
+        "riccati_fused stage_bf16": ("riccati_fused", 2048, {},
+                                     dict(stage_bf16=True), False),
+        "riccati (the scan)": ("riccati", 2048, {}, {}, False),
+        "use_pallas": ("riccati", 2048, {}, dict(use_pallas=True), False),
+        "condensed (B=256)": ("condensed", 256, {}, {}, False),
+    }
+    same = {}
+    for name, (backend, B, mpc, solver, cone) in cases.items():
+        cfg = cfg_of(backend, mpc=mpc, solver=solver)
+        graph.clear()
+        ok = True
+        for seed in (0, 1):       # the second problem replays both graphs
+            x0, refs = problem(cfg, B, seed, cone)
+            cold = planner.plan(cfg, x0, refs)
+            ok &= bitwise(cold, planner._plan_eager(cfg, x0, refs))
+            warm = warm_of(cold, B, cfg.mpc.horizon)
+            ok &= bitwise(planner.plan(cfg, x0, refs, warm),
+                          planner._plan_eager(cfg, x0, refs, warm))
+            ok &= len(graph.entries()) == 2 - (backend == "condensed")
+        same[name] = ok
+    cfg = cfg_of("auto")
+    x0, refs = problem(cfg, 2048, 0)
+    graph.clear()
+    planner.plan(cfg, x0, refs)
+    x0n = x0.clone()
+    x0n[1, 0] = float("nan")
+    out = planner.plan(cfg, x0n, refs)
+    same["a NaN lane through the cached graph, quarantined"] = (
+        len(graph.entries()) == 1 and bitwise(out, planner._plan_eager(
+            cfg, x0n, refs))
+        and not bool(out.sol.converged[1])
+        and bool((out.forces[1] == 0).all())
+        and bool(torch.isfinite(out.forces).all()))
+    c20 = sweep.cli_config()
+    c20 = c20.replace(gait=dataclasses.replace(c20.gait, trot_cycle=0.05))
+    scn = sweep.random_scenarios(c20, 64, seed=5, device=dev)
+    graph.clear()
+    graphed = sweep.run_batch(c20, scn, 2)
+    calls = [e for e in graph.entries() if e.k is None]    # head, tail
+    with eager_plans():
+        eager = sweep.run_batch(c20, scn, 2)
+    same["sweep.run_batch B=64, 2 cycles, graphed head and tail against "
+         "eager"] = (len(calls) == 2 and len(tick_graphs()) == 1
+                     and bitwise(graphed, eager))
+    print(f"[plan graph] graphed plan and head against their eager bodies, "
+          f"every output bit for bit (B=2048, H=20, cold and warm, a second "
+          f"problem through the cached graphs): {json.dumps(same)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(all(same.values()), "the graphed plan and head equal the eager "
+          "ones bit for bit")
+
+    # ---- (b) solves/s at B=2048, in turns ---------------------------------
+    B, H = 2048, 20
+    for backend, reps in (("auto", 20), ("riccati_fused", 10)):
+        cfg = cfg_of(backend)
+        x0, refs = problem(cfg, B, 0)
+        graph.clear()
+        planner.plan(cfg, x0, refs)
+        planner._plan_eager(cfg, x0, refs)
+        (entry,) = graph.entries()
+        fns = {"eager": lambda: planner._plan_eager(cfg, x0, refs),
+               "graphed": lambda: planner.plan(cfg, x0, refs)}
+        rates = {"eager": [], "graphed": []}
+        for _ in range(3):
+            for label in ("eager", "graphed", "graphed", "eager"):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(reps):
+                    out = fns[label]()
+                torch.cuda.synchronize()
+                rates[label].append(B * reps / (time.perf_counter() - t))
+        dev_ms = event_ms(entry.graph.replay, reps=20)
+        print(f"[plan graph] {card}: plan solves/s B={B} H={H} cold, backend "
+              f"{backend!r}, in turns (eager, graphed, graphed, eager; 3 "
+              f"rounds of {reps}-plan bursts): graphed "
+              f"{median(rates['graphed']):.1f} "
+              f"{[round(r, 1) for r in rates['graphed']]}, eager "
+              f"{median(rates['eager']):.1f} "
+              f"{[round(r, 1) for r in rates['eager']]}, "
+              f"{median(rates['graphed']) / median(rates['eager']):.2f}x; "
+              f"converged {float(out.sol.converged.float().mean()):.4f}; the "
+              f"graph's device time {dev_ms:.4f} ms a plan (CUDA events, 20 "
+              f"back-to-back replays), {B / dev_ms * 1e3:.1f} solves/s at "
+              f"it; capture {entry.capture_s:.3f} s, memory pool "
+              f"{entry.pool_bytes} bytes", flush=True)
+
+    # ---- (c) replan latency at B=1 and B=64, in turns ---------------------
+    cfg = cfg_of("auto")
+    for B in (1, 64):
+        x0, refs = problem(cfg, B, 0)
+        warm = warm_of(planner._plan_eager(cfg, x0, refs), B, H)
+        warm = warm._replace(valid=torch.ones_like(warm.valid))
+        x1, refs1 = problem(cfg, B, 1)
+        graph.clear()
+        planner.plan(cfg, x1, refs1, warm)
+        planner._plan_eager(cfg, x1, refs1, warm)
+        (entry,) = graph.entries()
+        fns = {"eager": lambda: planner._plan_eager(cfg, x1, refs1, warm),
+               "graphed": lambda: planner.plan(cfg, x1, refs1, warm)}
+        lat = {"eager": [], "graphed": []}
+        enqueue = {"eager": [], "graphed": []}
+        for _ in range(3):
+            for label in ("eager", "graphed", "graphed", "eager"):
+                for _ in range(100):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    fns[label]()
+                    t1 = time.perf_counter()
+                    torch.cuda.synchronize()
+                    lat[label].append(1e3 * (time.perf_counter() - t))
+                    enqueue[label].append(1e3 * (t1 - t))
+        dev_ms = event_ms(entry.graph.replay, reps=50)
+        line = "; ".join(
+            f"{label} p50 {percentile(lat[label], 50):.4f} ms, p99 "
+            f"{percentile(lat[label], 99):.4f} ms (max "
+            f"{max(lat[label]):.4f}), the host's enqueue time p50 "
+            f"{percentile(enqueue[label], 50):.4f} ms"
+            for label in ("graphed", "eager"))
+        print(f"[plan graph] {card}: replan latency B={B} H={H} (warm, "
+              f"backend 'auto', each plan fenced by torch.cuda.synchronize(), "
+              f"{len(lat['graphed'])} plans a side in turns): {line}; the "
+              f"graph's device time {dev_ms:.4f} ms (CUDA events, 50 "
+              f"back-to-back replays); capture {entry.capture_s:.3f} s, "
+              f"memory pool {entry.pool_bytes} bytes", flush=True)
+        check(percentile(lat["graphed"], 50) < percentile(lat["eager"], 50),
+              f"B={B}: the graphed replan is faster than the eager one")
+
+    # ---- (d) the cycle outside its ticks -----------------------------------
+    cfg = sweep.cli_config()
+    for Bn in (64, 1024):
+        scn = sweep.random_scenarios(cfg, Bn, seed=0, device=dev)
+        st = sweep.init_batch(cfg, scn)
+        terr = sweep._terrain(cfg, scn)
+        args = (st, terr, scn.target_xy, scn.dist_sched)
+        graph.clear()
+        # a first 20-tick cycle: the state of a replan with a warm start,
+        # and the tail's inputs
+        seen = {}
+
+        def spy(*a):
+            seen["carry"], seen["trace"] = real_scan(*a)
+            return seen["carry"], seen["trace"]
+
+        real_scan = loop._scan_ticks
+        loop._scan_ticks = spy
+        try:
+            st1, _ = loop.run_cycle(c20, *args)
+        finally:
+            loop._scan_ticks = real_scan
+        args = (st1,) + args[1:]
+
+        def head_eager():
+            with eager_plans():
+                return loop._cycle_head_eager(cfg, *args)
+
+        head = loop._cycle_head(cfg, *args)
+        check(bitwise(head, head_eager()), f"B={Bn}: the head's graph")
+        entry = [e for e in graph.entries()
+                 if isinstance(e.outs, loop._CycleHead)
+                 and e.outs.n_ticks == head.n_ticks][0]
+        # the tail on the first cycle's 20 ticks of trace
+        tail_in = (head.tail, seen["carry"], seen["trace"])
+
+        def tail_eager():
+            return loop._cycle_tail_eager(cfg, *tail_in)
+
+        def tail_graphed():
+            return loop._cycle_tail(cfg, *tail_in)
+
+        check(bitwise(tail_graphed(), tail_eager()),
+              f"B={Bn}: the tail's graph equals the eager tail")
+        fns = {"head eager": head_eager,
+               "head graphed": lambda: loop._cycle_head(cfg, *args),
+               "tail eager": tail_eager, "tail graphed": tail_graphed}
+        times = {k: [] for k in fns}
+        for _ in range(5):
+            for label in ("head eager", "head graphed", "tail eager",
+                          "tail graphed", "tail graphed", "tail eager",
+                          "head graphed", "head eager"):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fns[label]()
+                torch.cuda.synchronize()
+                times[label].append(1e3 * (time.perf_counter() - t))
+        med = {k: median(v) for k, v in times.items()}
+        print(f"[plan graph] {card}: the cycle outside its ticks, B={Bn} at "
+              f"the CLI's sweep configuration (host clock, each fenced by "
+              f"torch.cuda.synchronize(), 10 a side in turns): the head "
+              f"graphed {med['head graphed']:.4f} ms "
+              f"{[round(v, 3) for v in times['head graphed']]}, eager (its "
+              f"plan eager too) {med['head eager']:.4f} ms "
+              f"{[round(v, 3) for v in times['head eager']]}; the tail "
+              f"graphed {med['tail graphed']:.4f} ms, eager "
+              f"{med['tail eager']:.4f} ms; outside the ticks: "
+              f"{med['head graphed'] + med['tail graphed']:.4f} ms graphed, "
+              f"{med['head eager'] + med['tail eager']:.4f} ms eager; the "
+              f"head's capture {entry.capture_s:.3f} s, memory pool "
+              f"{entry.pool_bytes} bytes", flush=True)
+        graph.clear()
+
+    # ---- (e) phase 3's production-shape parity counts ----------------------
+    prod = [p for p in PARITY if p[0].startswith("B=2048 H=20")]
+    print("[plan graph] phase 3's production-shape parity (the resident "
+          "kernel against the plain scan, B=2048, H=20): " + ("; ".join(
+              f"{tag}: iters differ on {bad}/{n} lanes, {far} lanes beyond "
+              f"{atol:g} (max {err:.3g})"
+              for tag, bad, n, far, err, atol in prod)
+              or "not run (phase 3 did not run)"), flush=True)
+
+
 def main():
     import numpy as np
     import torch
@@ -1983,6 +2325,9 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    alone = sys.argv[1:] == ["--phase", "21"]
+    if sys.argv[1:] and not alone:
+        raise SystemExit(f"usage: {sys.argv[0]} [--phase 21]")
 
     # ---- 1. device ------------------------------------------------------
     print(f"[device] python {sys.version.split()[0]}, torch "
@@ -2004,6 +2349,13 @@ def main():
     print(f"[build] {', '.join(libs)} built in parallel in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     print_ptxas(_kernels, "resident_ipm")
+    if alone:
+        graphed_plan(dev, card)
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
 
     # ---- 3. kernel vs plain on the card -------------------------------------
     cfg_t = SolverConfig(iters=15, reltol=1e-4, abstol=1e-4,
@@ -2214,6 +2566,7 @@ def main():
     sharded_sweeps(dev, card)
     bf16 = stage_bf16(dev, card, x0, refs, x1, refs1)
     graphed_tick(dev, card, main_path)
+    graphed_plan(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "resident_ipm", "route": "cuda",

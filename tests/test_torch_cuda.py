@@ -1,8 +1,10 @@
 """The CUDA kernels against their plain versions, on the card: the
 resident IPM (csrc/resident_ipm.cu), the SPD factor / substitution /
 factor-and-solve (csrc/spd_chol.cu) and the fused Riccati passes
-(csrc/fused_riccati.cu); and the closed loop's tick replayed from a
-captured CUDA graph (runtime/graph.py) against the eager tick.
+(csrc/fused_riccati.cu); the closed loop's tick replayed from a
+captured CUDA graph (runtime/graph.py) against the eager tick; and
+planner.plan and the cycle's head replayed from their graphs against
+their eager bodies.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no JAX (the GPU machine has none) and takes its seed from its own
@@ -473,10 +475,17 @@ def test_closed_loop_runs_through_the_kernels(dev):
              cuda_riccati.solve_stage_qp_resident.launches)
     # per tick: 2 + 2 x 15 WBC factors and 4 mass-matrix factors
     assert after[0] - before[0] == 20 * (2 + 2 * 15 + 4)
-    (entry,) = graph.entries()
+    (entry,) = _ticks()
     assert entry.launches[0] == 2 + 2 * 15 + 4
     assert after[1] - before[1] == 20 * entry.launches[1]
     assert after[1] > before[1] and after[2] == before[2] + 1
+    # the cycle's head (its graph holds the plan): one resident launch;
+    # its tail none
+    from apf_quadruped_tpu_torch.runtime import loop
+    (head,) = [e for e in _calls() if isinstance(e.outs, loop._CycleHead)]
+    assert head.launches[3] == 1 and sum(head.launches) == 1
+    assert len(_calls()) == 2 and sum(map(sum, (e.launches for e in
+                                                _calls()))) == 1
     assert bool(torch.isfinite(res.final_com).all())
     assert bool((res.upright > 0.98).all())
 
@@ -536,6 +545,18 @@ def test_sharded_sweep_on_one_card(dev):
 GRAPH_B = 16
 
 
+def _ticks():
+    """The cached graphs of graph.scan (the ticks)."""
+    from apf_quadruped_tpu_torch.runtime import graph
+    return [e for e in graph.entries() if e.k is not None]
+
+
+def _calls():
+    """The cached graphs of graph.call (plans, cycle heads)."""
+    from apf_quadruped_tpu_torch.runtime import graph
+    return [e for e in graph.entries() if e.k is None]
+
+
 def _short_cycles(cfg, **gait):
     """cfg with 20-tick cycles (depth cut for time; the tick is the CLI's)."""
     import dataclasses
@@ -590,7 +611,7 @@ def test_graphed_tick_equals_eager(dev, case):
     args = _graph_case(case, dev) + (dev,)
     graph.clear()
     graphed = _two_cycles(*args)
-    assert len(graph.entries()) == 1
+    assert len(_ticks()) == 1 and len(_calls()) == 2   # tick; head, tail
     _assert_bitwise(graphed, _eager(_two_cycles, *args))
 
 
@@ -603,10 +624,11 @@ def test_graph_reused_for_other_scenarios(dev):
     graph.clear()
     first = _two_cycles(*_graph_case("early_td", dev, seed=0), dev)
     kept = [t.clone() for t in _leaves(first)]
-    (entry,) = graph.entries()
+    cached = {id(e) for e in graph.entries()}
+    assert len(_ticks()) == 1 and len(cached) == 3     # tick, head, tail
     args = _graph_case("early_td", dev, seed=1) + (dev,)
     second = _two_cycles(*args)
-    assert graph.entries() == [entry]
+    assert {id(e) for e in graph.entries()} == cached
     _assert_bitwise(second, _eager(_two_cycles, *args))
     _assert_bitwise(first, kept)
     assert not all(torch.equal(a, b) for a, b in zip(_leaves(first),
@@ -632,7 +654,7 @@ def test_graphed_shards_on_one_card(dev):
 
     graph.clear()
     graphed = sharded()
-    assert len(graph.entries()) == 1
+    assert len(_ticks()) == 1 and len(_calls()) == 2   # tick; head, tail
     _assert_bitwise(graphed, _eager(sharded))
     ref = sweep.step_batch(cfg, scn, sweep.init_batch(cfg, scn), 2)
     com = mesh_mod.gather(m, graphed[1]).com
@@ -641,7 +663,8 @@ def test_graphed_shards_on_one_card(dev):
 
 def test_graph_capture_failure_raises(dev):
     """A step that reads a value back to the host cannot be captured: the
-    capture raises and nothing runs the step eagerly instead."""
+    capture raises and nothing runs the step eagerly instead; the failed
+    capture's memory pool is closed, so later captures free their memory."""
     from apf_quadruped_tpu_torch.runtime import graph
 
     def step(inputs, carry, k, outs):
@@ -654,6 +677,19 @@ def test_graph_capture_failure_raises(dev):
                    (), 3)
     torch.cuda.synchronize()
     assert graph.entries() == cached
+    # the failed capture's pool is closed: a later capture's memory goes
+    # back to the card when its graph is dropped
+    x = torch.ones(2**26, device=dev)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    y = graph.call(("after a failed capture",), lambda a: a[0] * 2.0, (x,))
+    assert torch.equal(y, x * 2.0)
+    del y
+    graph.clear()
+    torch.cuda.empty_cache()
+    # x is 256 MiB; a capture routed into the dead pool would keep its
+    # buffers (3 x 256 MiB) reserved
+    assert torch.cuda.memory_reserved() - before < 2**26
 
 
 def test_spd_route_above_kernel_size_launches_nothing(rng, dev):
@@ -1207,3 +1243,219 @@ def test_bf16_plan_runs_the_bf16_kernels(dev, backend):
     ftol = 1e-3 * max(1.0, float(ref.u.abs().max()))
     assert float((out.forces.reshape(ref.u.shape) - ref.u).abs().max()) \
         <= ftol
+
+
+# ---------------------------------------------------------------------------
+# planner.plan and the cycle's head replayed from captured CUDA graphs
+# (runtime/graph.call) against their eager bodies, bit for bit
+# ---------------------------------------------------------------------------
+
+# every backend and option of the plan: (backend, MpcConfig fields,
+# SolverConfig fields, terrain-aligned cones)
+PLAN_OPTIONS = {
+    "resident": ("riccati_resident", {}, {}, False),
+    "resident cone_rot": ("riccati_resident", {}, {}, True),
+    "resident stage_bf16": ("riccati_resident", {}, dict(stage_bf16=True),
+                            False),
+    "fused": ("riccati_fused", {}, {}, False),
+    "fused cone_rot": ("riccati_fused", {}, {}, True),
+    "fused stage_bf16": ("riccati_fused", {}, dict(stage_bf16=True), False),
+    "fused base_box+base_acc": ("riccati_fused",
+                                dict(base_box=True, base_acc=True), {},
+                                False),
+    "scan": ("riccati", {}, {}, False),
+    "use_pallas": ("riccati", {}, dict(use_pallas=True), False),
+    "condensed": ("condensed", {}, {}, False),
+    "condensed base_box+base_acc cone_rot": (
+        "condensed", dict(base_box=True, base_acc=True), {}, True),
+    "sqp_iters=2": ("riccati_resident", dict(sqp_iters=2), {}, False),
+}
+
+
+def _plan_cfg(option, H=20):
+    backend, mpc, solver, _ = PLAN_OPTIONS[option]
+    return EngineConfig(mpc=MpcConfig(horizon=H, dt=0.025, backend=backend,
+                                      **mpc),
+                        solver=SolverConfig(**solver))
+
+
+def _plan_problem(option, cfg, B, dev, seed):
+    """bench.py's problem, with terrain-aligned cones where the option
+    asks for them."""
+    x0, refs = problems.bench_problem(cfg, B, seed=seed, device=dev)
+    if PLAN_OPTIONS[option][3]:
+        from apf_quadruped_tpu_torch.sim import terrain
+        gen = torch.Generator(dev).manual_seed(seed)
+        n = torch.randn(B, cfg.mpc.horizon, 4, 3, device=dev,
+                        generator=gen) * 0.2
+        n[..., 2] = 1.0
+        refs = refs._replace(cone_rot=terrain.basis_from_normal(
+            n / torch.linalg.vector_norm(n, dim=-1, keepdim=True)))
+    return x0, refs
+
+
+def _warm_from(out, B, H):
+    """A warm start from a plan, half its lanes valid."""
+    return tr.WarmStart(u=out.forces.reshape(B, H, 12),
+                        z=out.sol.z.reshape(B, H, -1),
+                        s=out.sol.s.reshape(B, H, -1),
+                        valid=torch.arange(B, device=out.forces.device) % 2
+                        == 0)
+
+
+@pytest.mark.parametrize("H", [20, 40])
+@pytest.mark.parametrize("B", [1, 64, 2048])
+@pytest.mark.parametrize("option", list(PLAN_OPTIONS))
+def test_graphed_plan_equals_eager(dev, option, B, H):
+    """plan on the card replays its graph: cold and warm (two graphs; one
+    for the condensed backend, which takes no warm start), each bit for
+    bit the eager body's, and a second problem through the same cached
+    graphs bit for bit its eager plans."""
+    from apf_quadruped_tpu_torch.runtime import graph
+    cfg = _plan_cfg(option, H)
+    graph.clear()
+    # the eager plans first, so that the largest (the condensed QP at
+    # B=2048, H=40: ~26 GB eager, a ~45 GB pool) need not fit side by side
+    cases = []
+    for seed in (0, 1):
+        x0, refs = _plan_problem(option, cfg, B, dev, seed)
+        cold = planner._plan_eager(cfg, x0, refs)
+        warm = _warm_from(cold, B, H)
+        cases.append((x0, refs, warm, cold,
+                      planner._plan_eager(cfg, x0, refs, warm)))
+    torch.cuda.empty_cache()
+    for x0, refs, warm, cold, warmed in cases:
+        _assert_bitwise(planner.plan(cfg, x0, refs), cold)
+        _assert_bitwise(planner.plan(cfg, x0, refs, warm), warmed)
+        # condensed: no warm start, one graph for both
+        assert len(graph.entries()) == 2 - (cfg.mpc.backend == "condensed")
+    graph.clear()
+
+
+@pytest.mark.parametrize("option", ["resident", "fused", "scan",
+                                    "use_pallas", "condensed"])
+def test_graphed_plan_quarantines_a_nan_lane(dev, option):
+    from apf_quadruped_tpu_torch.runtime import graph
+    cfg = _plan_cfg(option)
+    x0, refs = _plan_problem(option, cfg, 64, dev, 0)
+    graph.clear()
+    planner.plan(cfg, x0, refs)                    # capture on finite data
+    x0 = x0.clone()
+    x0[1, 0] = float("nan")
+    out = planner.plan(cfg, x0, refs)
+    assert len(graph.entries()) == 1
+    assert bool(torch.isfinite(out.forces).all())
+    assert not bool(out.sol.converged[1]) and bool((out.forces[1] == 0).all())
+    # bit patterns: the condensed plan leaves the lane's states NaN
+    for x, y in zip(_leaves(out), _leaves(planner._plan_eager(cfg, x0,
+                                                              refs))):
+        if x.is_floating_point():
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("option", ["resident", "fused", "use_pallas",
+                                    "resident stage_bf16"])
+def test_graphed_plan_counts_one_plans_launches(dev, option):
+    """The counters advance by an eager plan's launches at the capturing
+    call and at each replay."""
+    from apf_quadruped_tpu_torch.ops import cuda_chol
+    from apf_quadruped_tpu_torch.runtime import graph
+    counters = (cuda_riccati.solve_stage_qp_resident,
+                cuda_riccati.fused_rollout, cuda_riccati.fused_factor,
+                cuda_riccati.fused_vector, cuda_chol.chol_solve)
+
+    def counts():
+        return np.array([f.launches for f in counters])
+
+    cfg = _plan_cfg(option)
+    x0, refs = _plan_problem(option, cfg, 64, dev, 0)
+    n0 = counts()
+    planner._plan_eager(cfg, x0, refs)
+    one = counts() - n0
+    assert one.sum() > 0
+    graph.clear()
+    for _ in range(3):
+        n0 = counts()
+        planner.plan(cfg, x0, refs)
+        assert (counts() - n0 == one).all()
+
+
+@pytest.mark.parametrize("option", ["resident", "fused", "scan",
+                                    "use_pallas", "condensed",
+                                    "sqp_iters=2", "resident stage_bf16",
+                                    "fused base_box+base_acc"])
+def test_plan_makes_no_sync(dev, option):
+    """After warm-up a replay and an eager plan make no stream sync and no
+    copy from host memory."""
+    from apf_quadruped_tpu_torch.runtime import graph
+    cfg = _plan_cfg(option)
+    x0, refs = _plan_problem(option, cfg, 64, dev, 0)
+    graph.clear()
+    warm = _warm_from(planner.plan(cfg, x0, refs), 64, 20)
+    planner.plan(cfg, x0, refs, warm)
+    planner._plan_eager(cfg, x0, refs, warm)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        planner.plan(cfg, x0, refs, warm)
+        planner._plan_eager(cfg, x0, refs, warm)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def _eager_head(fn, *args):
+    """fn(*args) with the cycle's head, its plan and its tail run eagerly
+    on the card (the ticks still replay their graph)."""
+    from apf_quadruped_tpu_torch.runtime import loop
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(loop, "_cycle_head", loop._cycle_head_eager)
+        mp.setattr(loop, "_cycle_tail", loop._cycle_tail_eager)
+        mp.setattr(planner, "plan", planner._plan_eager)
+        return fn(*args)
+
+
+@pytest.mark.parametrize("case", ["trot", "height", "crawl", "adaptive"])
+def test_cycle_head_makes_no_sync(dev, case):
+    """After the first cycle a head replay and an eager head make no
+    stream sync and no copy from host memory, nor do a tail's replay and
+    the eager tail (on 2 ticks' trace)."""
+    from apf_quadruped_tpu_torch.runtime import graph, loop
+    cfg, terr, tgt, dist = _graph_case(case, dev)
+    graph.clear()
+    st = loop.init(cfg, GRAPH_B, device=dev)
+    st, _ = loop.run_cycle(cfg, st, terr, tgt, dist)
+    head = loop._cycle_head_eager(cfg, st, terr, tgt, dist)
+    carry, trace = loop._scan_ticks_eager(cfg, head.cyc, head.carry, 2)
+    loop._cycle_tail(cfg, head.tail, carry, trace)     # a 2-tick tail
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graphed = loop._cycle_head(cfg, st, terr, tgt, dist)
+        eager = loop._cycle_head_eager(cfg, st, terr, tgt, dist)
+        tail = loop._cycle_tail(cfg, head.tail, carry, trace)
+        tail_eager = loop._cycle_tail_eager(cfg, head.tail, carry, trace)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert graphed.n_ticks == eager.n_ticks
+    assert graphed.cyc.knot_ratio == eager.cyc.knot_ratio
+    _assert_bitwise(graph._tensors(graphed), graph._tensors(eager))
+    _assert_bitwise(tail, tail_eager)
+
+
+def test_sweep_with_graphed_head_equals_eager_head(dev):
+    """sweep.run_batch at B=64, two cycles: the cycle's head and tail
+    replayed from their graphs against the eager head, plan and tail,
+    every result and metric bit for bit; one head, one tail and one tick
+    graph cached."""
+    from apf_quadruped_tpu_torch.runtime import graph, sweep
+    cfg = _short_cycles(sweep.cli_config())
+    scn = sweep.random_scenarios(cfg, 64, seed=5, use_native=False,
+                                 device=dev)
+    graph.clear()
+    graphed = sweep.run_batch(cfg, scn, 2)
+    assert len(_calls()) == 2 and len(_ticks()) == 1
+    eager = _eager_head(sweep.run_batch, cfg, scn, 2)
+    _assert_bitwise(graphed, eager)
+    assert len(_calls()) == 2
