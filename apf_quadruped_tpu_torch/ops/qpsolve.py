@@ -16,7 +16,10 @@ inequality rows become 0'x <= 1 and masked equality rows 0'x = 0 with a
 unit diagonal in the Schur complement.
 
 The SPD factor and solves go through ops/chol.py: the hand-written CUDA
-kernels for CUDA tensors, the plain PyTorch version on the CPU.
+kernels for CUDA tensors, the plain PyTorch version on the CPU.  On the
+card a solve is one replay of its captured CUDA graph (runtime/graph.call:
+the counterpart of the JAX package's jitted `solve_qp`), bit for bit the
+eager body `_solve_qp_eager`, which the CPU runs.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 
 from .._precision import highest_precision
 from ..config import SolverConfig
+from ..runtime import graph
 from .chol import spd_factor, spd_solve
 
 
@@ -85,7 +89,16 @@ def _mtv(M, v):
 
 def solve_qp(qp: QPData, cfg: SolverConfig = SolverConfig()) -> QPSolution:
     """Batched Mehrotra predictor-corrector IPM with a fixed iteration
-    count; any leading batch shape, dtype of qp.P.  Runs with TF32 off."""
+    count; any leading batch shape, dtype of qp.P.  Runs with TF32 off.
+    On CUDA tensors a replay of the solve's graph, captured per
+    configuration and layout of qp; on the CPU the eager body."""
+    if qp.P.device.type == "cuda":
+        return graph.call(("qp", cfg), lambda q: _solve_qp_eager(q, cfg), qp)
+    return _solve_qp_eager(qp, cfg)
+
+
+def _solve_qp_eager(qp: QPData, cfg: SolverConfig) -> QPSolution:
+    """solve_qp's body, run op by op."""
     with highest_precision():
         return _solve_qp_impl(qp, cfg)
 

@@ -41,7 +41,7 @@ from ._precision import highest_precision
 from .config import EngineConfig
 from .models import srb
 from .ops.cuda_riccati import solve_stage_qp_fused, solve_stage_qp_resident
-from .ops.qpsolve import QPData, QPSolution, solve_qp
+from .ops.qpsolve import QPData, QPSolution, _solve_qp_eager
 from .ops.riccati import StageQP, WarmStart, solve_stage_qp
 from .runtime import graph
 
@@ -425,7 +425,7 @@ def _plan_condensed(cfg: EngineConfig, state0, refs: MpcRefs) -> MpcPlan:
     qp = QPData(P=P, q=qv, A=torch.zeros(batch + (1, Hh * NU), **opts),
                 b=zeros1, G=torch.cat(Gs, dim=-2), h=torch.cat(hs, dim=-1),
                 eq_mask=zeros1, ineq_mask=torch.cat(ms, dim=-1))
-    sol = solve_qp(qp, cfg.solver)
+    sol = _solve_qp_eager(qp, cfg.solver)
 
     states = Sx_x0 + torch.einsum("...hnm,...m->...hn", Su, sol.x)
     U_knots = sol.x.reshape(batch + (Hh, NU))

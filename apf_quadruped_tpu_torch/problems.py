@@ -5,6 +5,8 @@ suite's own make_problem (tests/test_pallas_riccati.py), optionally with
 state rows and accel rows; the arrays feed both packages.
 `bench_problem` builds the planner problem exactly as bench.py does:
 DogBot standing in a trot schedule, a 6 cm CoM step, seeded noise.
+`wbc_problem` builds the whole-body QP's inputs as the JAX package's
+WBC latency benchmark (benchmarks/wbc_latency.py) draws them.
 """
 
 from __future__ import annotations
@@ -12,11 +14,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import gait, planner
+from . import gait, planner, wbc
 from ._device import resolve_device
 from .config import EngineConfig
-from .models import srb
+from .models import rbd, srb
 from .models.dogbot import nominal_stance
+from .sim import physics
 
 
 def random_stage_qp(rng: np.random.Generator, B=4, H=5, NX=6, NU=4, M=6,
@@ -89,3 +92,34 @@ def bench_problem(cfg: EngineConfig, B: int, seed: int = 0,
     x0 = srb.pack_state(torch.stack([zero, zero, yaw], dim=-1), com0, zeros3,
                         vel)
     return x0, refs
+
+
+def wbc_problem(cfg: EngineConfig, B: int, seed: int = 0,
+                dtype=torch.float32, device="cuda"):
+    """(WbcState, WbcRefs) of the WBC latency benchmark's states at batch
+    B, on the card unless `device` says otherwise: the standing spawn
+    (physics.initial_state) with q jittered by N(0, 0.02) and u drawn from
+    N(0, 0.01), all four feet in contact, no crawl, identity cone bases;
+    the CoM reference at the CoM, every other reference zero."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    st0 = physics.initial_state(cfg, dtype=torch.float64)
+    q = st0.q.numpy()[None] + rng.normal(size=(B, 12)) * 0.02
+    u = rng.normal(size=(B, 18)) * 0.01
+
+    def t(v):
+        return torch.as_tensor(np.array(v), device=device).to(dtype)
+
+    st = wbc.WbcState(
+        p_base=t(np.broadcast_to(st0.p_base.numpy(), (B, 3))),
+        R_wb=t(np.broadcast_to(st0.R_wb.numpy(), (B, 3, 3))), q=t(q), u=t(u),
+        contact=torch.ones(B, 4, dtype=dtype, device=device),
+        crawl=torch.zeros(B, dtype=torch.bool, device=device),
+        cone_rot=t(np.broadcast_to(np.eye(3), (B, 4, 3, 3))))
+    z3 = torch.zeros(B, 3, dtype=dtype, device=device)
+    z43 = torch.zeros(B, 4, 3, dtype=dtype, device=device)
+    ref = wbc.WbcRefs(
+        com_pos=rbd.com_position(cfg.robot, st.p_base, st.R_wb, st.q),
+        com_vel=z3, com_acc=z3, rpy=z3, omega=z3, omega_dot=z3,
+        swing_pos=z43, swing_vel=z43, swing_acc=z43)
+    return st, ref

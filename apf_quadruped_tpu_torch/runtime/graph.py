@@ -22,10 +22,11 @@ the carry out.
     out = call(key, fn, inputs)
 
 is one replay of a graph of `fn(inputs)` (planner.plan, the cycle's head
-in runtime/loop.py): the inputs copied into static buffers, the outputs
-cloned out of the graph's pool.  A call made inside another graph's
-capture runs `fn` directly, so a plan captured inside the cycle's head is
-part of the head's graph.
+and tail in runtime/loop.py, wbc.solve, ops/qpsolve.solve_qp): the
+inputs copied into static buffers, the outputs cloned out of the graph's
+pool.  A call made inside another graph's capture runs `fn` directly, so
+a plan captured inside the cycle's head is part of the head's graph, and
+a WBC solve inside the tick's graph part of that.
 
 A graph is captured on the first use of a `key` (which must hash
 everything the code branches on) and a layout of the inputs (every
@@ -33,7 +34,9 @@ tensor's shape, strides, dtype and device, every other leaf's value, None
 included), and cached: at most MAX_GRAPHS graphs of scans and calls
 together, the least recently used dropped with its memory pool.  A sweep
 holds two for each configuration and batch (the cycle's head and its
-tick), a planner one for each configuration, backend and input layout.
+tick), a planner one for each configuration, backend and input layout,
+wbc.solve and solve_qp called on their own one for each configuration
+and input layout.
 
 Before the capture the body runs once eagerly on a side stream on the
 buffers, its result discarded: it fills the per-device constant caches

@@ -16,7 +16,11 @@ change:
 and the torques are tau = (M udot + h - Jc' f)[6:18].  The JAX module
 writes the blocks with .at[].set() chains; here they are concatenated,
 or assigned into fresh tensors, batch first.  The QP goes to
-ops/qpsolve.solve_qp, whose SPD solves run on the CUDA kernels on the card.
+ops/qpsolve.solve_qp's body, whose SPD solves run on the CUDA kernels on
+the card.  On the card a tick is one replay of its captured CUDA graph
+(runtime/graph.call: the counterpart of the JAX package's jitted `solve`),
+bit for bit the eager body `_solve_eager`, which the CPU runs; inside the
+closed loop's tick graph the body runs as part of that graph.
 """
 
 from __future__ import annotations
@@ -31,8 +35,9 @@ from ._precision import highest_precision
 from .config import EngineConfig
 from .models import rbd
 from .models.dogbot import joint_limits
-from .ops.qpsolve import QPData, QPSolution, solve_qp
+from .ops.qpsolve import QPData, QPSolution, _solve_qp_eager
 from .ops.rotations import rot_to_rpy, skew
+from .runtime import graph
 
 NX = 30      # 18 accelerations + 12 forces
 NEQ = 30     # 6 dynamics + 12 no-slip + 12 swing-force-zero
@@ -247,8 +252,11 @@ def _build_qp(cfg: EngineConfig, st: WbcState, ref: WbcRefs):
     if w.ref_exact and w.ref_exact_swing_b0:
         # the reference's trot-swing QP drops its known term (b = 0)
         # whenever legs swing outside crawl
-        trot_swing = (c4.amin(dim=-1) < 0.5) & ~torch.as_tensor(
-            st.crawl, device=dev)
+        trot_swing = c4.amin(dim=-1) < 0.5
+        if isinstance(st.crawl, torch.Tensor):
+            trot_swing = trot_swing & ~st.crawl
+        elif st.crawl:
+            trot_swing = torch.zeros_like(trot_swing)
         b = torch.where(trot_swing[..., None], torch.zeros_like(b), b)
     ones6 = torch.ones(batch + (6,), dtype=dtype, device=dev)
     eq_mask = torch.cat([ones6, st_mask, sw_mask], dim=-1)
@@ -284,14 +292,25 @@ def _build_qp(cfg: EngineConfig, st: WbcState, ref: WbcRefs):
 
 def solve(cfg: EngineConfig, st: WbcState, ref: WbcRefs) -> WbcOutput:
     """One batched WBC tick, with TF32 off for the whole tick (the QP data
-    itself, not only the solve, needs full float32)."""
+    itself, not only the solve, needs full float32).  On CUDA tensors a
+    replay of the tick's graph, captured per configuration and layout of
+    (st, ref) (cone_rot None or not, crawl a tensor or a bool); on the CPU
+    the eager body."""
+    if st.q.device.type == "cuda":
+        return graph.call(("wbc", cfg),
+                          lambda args: _solve_eager(cfg, *args), (st, ref))
+    return _solve_eager(cfg, st, ref)
+
+
+def _solve_eager(cfg: EngineConfig, st: WbcState, ref: WbcRefs) -> WbcOutput:
+    """solve's body, run op by op."""
     with highest_precision():
         return _solve_impl(cfg, st, ref)
 
 
 def _solve_impl(cfg: EngineConfig, st: WbcState, ref: WbcRefs) -> WbcOutput:
     qp, (M, h, Jc, com) = _build_qp(cfg, st, ref)
-    sol = solve_qp(qp, cfg.solver)
+    sol = _solve_qp_eager(qp, cfg.solver)
     udot, f = sol.x[..., 0:18], sol.x[..., 18:30]
     r = _mv(M, udot) + h - _mtv(Jc, f)
     tau = r[..., 6:18]

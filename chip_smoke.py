@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
     python3 chip_smoke.py --phase 21   # the build, then phase 21 alone
+    python3 chip_smoke.py --phase 22   # the build, then phase 22 alone
 
 Phases; each raises on failure, so any failure exits non-zero:
   1. device: torch/CUDA versions, the card's name and power limit;
@@ -120,7 +121,21 @@ Phases; each raises on failure, so any failure exits non-zero:
      "riccati_fused") and replan latency p50/p99 at B=1 and B=64, each
      graph's capture time and pool, the cycle's head and tail at the
      CLI's sweep configuration (B=64, 1024), and phase 3's
-     production-shape parity counts beside them.
+     production-shape parity counts beside them;
+ 22. the graphed WBC tick (runtime/graph.call): wbc.solve and solve_qp
+     against their eager bodies (wbc._solve_eager,
+     qpsolve._solve_qp_eager) bit for bit at B in {1, 64, 128, 1024} on
+     the WBC latency benchmark's states (problems.wbc_problem, seed 0,
+     EngineConfig(), SolverConfig(), float32), a NaN lane, the launch
+     counters; the WBC tick latency p50/p99/mean a call, graphed and
+     eager in turns (600 calls a side at B=1, 200 at the others), with
+     the host's enqueue time, the graph's device time, capture and pool,
+     and the B=1 p99 against the reference's 2.5 ms budget (400 Hz); the
+     marginal solve in a tick scan (graph.scan of K = 64 and 256 solves
+     at B=1, t(K) = a + b K).  Reported, not gated on the budget.
+The eager sides of phases 10, 20 and 21 swap in the eager bodies:
+`eager_ticks` the tick's, `eager_plans` the plan's, the head's and the
+tail's, and both those of wbc.solve and solve_qp (`eager_wbc`).
 Every kernel's record carries its least possible time on this card
 (`bound_ms`: the larger of its bytes over 3.35 TB/s and its float32
 operations over 67 TFLOP/s, counted from this run's inputs and, for the
@@ -363,18 +378,39 @@ def tick_graphs():
     return [e for e in graph.entries() if e.k is not None]
 
 
-class eager_ticks:
+class eager_wbc:
+    """Within this block wbc.solve and solve_qp run their eager bodies on
+    the card (wbc._solve_eager, qpsolve._solve_qp_eager), the graphs'
+    plain versions."""
+
+    def __enter__(self):
+        from apf_quadruped_tpu_torch import wbc
+        from apf_quadruped_tpu_torch.ops import qpsolve
+        self.real_wbc = wbc.solve, qpsolve.solve_qp
+        wbc.solve = wbc._solve_eager
+        qpsolve.solve_qp = qpsolve._solve_qp_eager
+
+    def __exit__(self, *exc):
+        from apf_quadruped_tpu_torch import wbc
+        from apf_quadruped_tpu_torch.ops import qpsolve
+        wbc.solve, qpsolve.solve_qp = self.real_wbc
+
+
+class eager_ticks(eager_wbc):
     """Within this block the closed loop runs its ticks eagerly on the card
-    (loop._scan_ticks_eager), the graph's plain version, for comparison."""
+    (loop._scan_ticks_eager), the graph's plain version, for comparison,
+    and each tick's WBC solve eagerly too (eager_wbc)."""
 
     def __enter__(self):
         from apf_quadruped_tpu_torch.runtime import loop
+        super().__enter__()
         self.real = loop._scan_ticks
         loop._scan_ticks = loop._scan_ticks_eager
 
     def __exit__(self, *exc):
         from apf_quadruped_tpu_torch.runtime import loop
         loop._scan_ticks = self.real
+        super().__exit__(*exc)
 
 
 def tick_profile(cfg, scn, n_ticks, eager=False):
@@ -1950,7 +1986,7 @@ def graphed_tick(dev, card, main_path):
         with _precision.highest_precision():
             wst, ref, td_flag, td_pos = loop._tick_refs(cfg, cyc, carry, k)
             qp, _ = wbc._build_qp(cfg, wst, ref)
-            out = wbc.solve(cfg, wst, ref)
+            out = wbc._solve_eager(cfg, wst, ref)
 
             def phys():
                 fd, ff = disturbance.eval_links(cyc.dist_sched, sim0.t)
@@ -1974,9 +2010,10 @@ def graphed_tick(dev, card, main_path):
                   replay_ms(lambda: loop._tick_refs(cfg, cyc, carry, k)),
                   "WBC build": replay_ms(lambda: wbc._build_qp(cfg, wst,
                                                                ref)),
-                  "QP (solve_qp)": replay_ms(lambda: qpsolve.solve_qp(
-                      qp, cfg.solver)),
-                  "wbc.solve": replay_ms(lambda: wbc.solve(cfg, wst, ref)),
+                  "QP (solve_qp)": replay_ms(
+                      lambda: qpsolve._solve_qp_eager(qp, cfg.solver)),
+                  "wbc.solve": replay_ms(
+                      lambda: wbc._solve_eager(cfg, wst, ref)),
                   "physics (disturbance, physics.step)": replay_ms(phys),
                   "margin, observer and trace": replay_ms(tail),
                   "tick": replay_ms(lambda: loop._step(
@@ -1996,15 +2033,17 @@ def graphed_tick(dev, card, main_path):
               flush=True)
 
 
-class eager_plans:
+class eager_plans(eager_wbc):
     """Within this block planner.plan and the cycle's head and tail run
     their eager bodies on the card (planner._plan_eager,
     loop._cycle_head_eager, loop._cycle_tail_eager), the graphs' plain
-    versions, for comparison."""
+    versions, for comparison, and so do wbc.solve and solve_qp
+    (eager_wbc)."""
 
     def __enter__(self):
         from apf_quadruped_tpu_torch import planner
         from apf_quadruped_tpu_torch.runtime import loop
+        super().__enter__()
         self.real = planner.plan, loop._cycle_head, loop._cycle_tail
         planner.plan = planner._plan_eager
         loop._cycle_head = loop._cycle_head_eager
@@ -2014,10 +2053,33 @@ class eager_plans:
         from apf_quadruped_tpu_torch import planner
         from apf_quadruped_tpu_torch.runtime import loop
         planner.plan, loop._cycle_head, loop._cycle_tail = self.real
+        super().__exit__(*exc)
 
 
 def percentile(xs, q):
     return float(np.percentile(xs, q))
+
+
+def same_bits(a, b):
+    """Every tensor leaf of two trees equal in dtype, shape and bits (NaN
+    included)."""
+    import torch
+
+    from apf_quadruped_tpu_torch.runtime import graph
+
+    la, lb = graph._tensors(a), graph._tensors(b)
+    if len(la) != len(lb):
+        return False
+    for x, y in zip(la, lb):
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return False
+        if x.is_floating_point():
+            bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+            x = x.view(bits[x.element_size()])
+            y = y.view(bits[y.element_size()])
+        if not torch.equal(x, y):
+            return False
+    return True
 
 
 def graphed_plan(dev, card):
@@ -2046,23 +2108,6 @@ def graphed_plan(dev, card):
     from apf_quadruped_tpu_torch.ops import riccati
     from apf_quadruped_tpu_torch.runtime import graph, loop, sweep
     from apf_quadruped_tpu_torch.sim import terrain
-
-    def bitwise(a, b):
-        """Every tensor leaf equal in dtype and bits (NaN included), every
-        other leaf equal."""
-        la, lb = graph._tensors(a), graph._tensors(b)
-        if len(la) != len(lb):
-            return False
-        for x, y in zip(la, lb):
-            if x.dtype != y.dtype or x.shape != y.shape:
-                return False
-            if x.is_floating_point():
-                bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}
-                x = x.view(bits[x.element_size()])
-                y = y.view(bits[y.element_size()])
-            if not torch.equal(x, y):
-                return False
-        return True
 
     def cfg_of(backend, H=20, mpc=None, solver=None):
         return EngineConfig(mpc=MpcConfig(horizon=H, dt=0.025,
@@ -2112,9 +2157,9 @@ def graphed_plan(dev, card):
         for seed in (0, 1):       # the second problem replays both graphs
             x0, refs = problem(cfg, B, seed, cone)
             cold = planner.plan(cfg, x0, refs)
-            ok &= bitwise(cold, planner._plan_eager(cfg, x0, refs))
+            ok &= same_bits(cold, planner._plan_eager(cfg, x0, refs))
             warm = warm_of(cold, B, cfg.mpc.horizon)
-            ok &= bitwise(planner.plan(cfg, x0, refs, warm),
+            ok &= same_bits(planner.plan(cfg, x0, refs, warm),
                           planner._plan_eager(cfg, x0, refs, warm))
             ok &= len(graph.entries()) == 2 - (backend == "condensed")
         same[name] = ok
@@ -2126,7 +2171,7 @@ def graphed_plan(dev, card):
     x0n[1, 0] = float("nan")
     out = planner.plan(cfg, x0n, refs)
     same["a NaN lane through the cached graph, quarantined"] = (
-        len(graph.entries()) == 1 and bitwise(out, planner._plan_eager(
+        len(graph.entries()) == 1 and same_bits(out, planner._plan_eager(
             cfg, x0n, refs))
         and not bool(out.sol.converged[1])
         and bool((out.forces[1] == 0).all())
@@ -2141,7 +2186,7 @@ def graphed_plan(dev, card):
         eager = sweep.run_batch(c20, scn, 2)
     same["sweep.run_batch B=64, 2 cycles, graphed head and tail against "
          "eager"] = (len(calls) == 2 and len(tick_graphs()) == 1
-                     and bitwise(graphed, eager))
+                     and same_bits(graphed, eager))
     print(f"[plan graph] graphed plan and head against their eager bodies, "
           f"every output bit for bit (B=2048, H=20, cold and warm, a second "
           f"problem through the cached graphs): {json.dumps(same)} "
@@ -2254,7 +2299,7 @@ def graphed_plan(dev, card):
                 return loop._cycle_head_eager(cfg, *args)
 
         head = loop._cycle_head(cfg, *args)
-        check(bitwise(head, head_eager()), f"B={Bn}: the head's graph")
+        check(same_bits(head, head_eager()), f"B={Bn}: the head's graph")
         entry = [e for e in graph.entries()
                  if isinstance(e.outs, loop._CycleHead)
                  and e.outs.n_ticks == head.n_ticks][0]
@@ -2267,7 +2312,7 @@ def graphed_plan(dev, card):
         def tail_graphed():
             return loop._cycle_tail(cfg, *tail_in)
 
-        check(bitwise(tail_graphed(), tail_eager()),
+        check(same_bits(tail_graphed(), tail_eager()),
               f"B={Bn}: the tail's graph equals the eager tail")
         fns = {"head eager": head_eager,
                "head graphed": lambda: loop._cycle_head(cfg, *args),
@@ -2308,6 +2353,214 @@ def graphed_plan(dev, card):
               or "not run (phase 3 did not run)"), flush=True)
 
 
+def wbc_latency(dev, card):
+    """Phase 22: wbc.solve and solve_qp replayed from captured CUDA graphs
+    (runtime/graph.call) against their eager bodies (wbc._solve_eager,
+    qpsolve._solve_qp_eager), and the WBC tick latency against the
+    reference's 400 Hz budget (2.5 ms a tick), measured as the JAX
+    package's benchmarks/wbc_latency.py measures it, on its states
+    (problems.wbc_problem, seed 0) at EngineConfig() with SolverConfig()
+    in float32.  (a) bit for bit at B in {1, 64, 128, 1024}, each graph
+    captured on one draw and replayed on another, a NaN lane at B=64
+    through the cached graph, and the launch counters against an eager
+    call's; (b) the wall latency of a call, each fenced by
+    torch.cuda.synchronize(), graphed and eager in turns (600 calls a side
+    at B=1, 200 at B=64, 128, 1024), with the host's enqueue time, the
+    graph's device time by CUDA events, its capture and pool; (c) the
+    marginal cost of a solve in a tick scan: graph.scan of K solves at B=1
+    (tick k at q0 + dq[k]), 20 calls of each K in {64, 256}, fit
+    t(K) = a + b K.  Reports the budget, does not gate on it."""
+    import torch
+
+    from apf_quadruped_tpu_torch import problems, wbc
+    from apf_quadruped_tpu_torch.config import EngineConfig, SolverConfig
+    from apf_quadruped_tpu_torch.models import rbd
+    from apf_quadruped_tpu_torch.ops import cuda_chol, qpsolve
+    from apf_quadruped_tpu_torch.runtime import graph
+    from apf_quadruped_tpu_torch.sim import physics
+
+    cfg = EngineConfig(solver=SolverConfig())
+    budget_ms = 2.5
+    batches = (1, 64, 128, 1024)
+
+    def wbc_entry(B):
+        """The cached graph of wbc.solve at batch B."""
+        return [e for e in graph.entries()
+                if isinstance(e.outs, wbc.WbcOutput)
+                and e.outs.tau.shape[0] == B][0]
+
+    def qp_entry(B):
+        return [e for e in graph.entries()
+                if isinstance(e.outs, qpsolve.QPSolution)
+                and e.outs.x.shape[0] == B][0]
+
+    # ---- (a) graphed against eager, bit for bit ---------------------------
+    t0 = time.perf_counter()
+    graph.clear()
+    same, probs = {}, {}
+    for B in batches:
+        ok = True
+        for seed in (0, 1):     # the second draw replays the cached graphs
+            st, ref = problems.wbc_problem(cfg, B, seed=seed, device=dev)
+            ok &= same_bits(wbc.solve(cfg, st, ref),
+                            wbc._solve_eager(cfg, st, ref))
+            qp, _ = wbc._build_qp(cfg, st, ref)
+            ok &= same_bits(qpsolve.solve_qp(qp, cfg.solver),
+                            qpsolve._solve_qp_eager(qp, cfg.solver))
+        probs[B] = (st, ref)
+        same[f"B={B}"] = ok
+    n_graphs = len(graph.entries())
+    st, ref = probs[64]
+    q = st.q.clone()
+    q[1, 0] = float("nan")
+    bad = st._replace(q=q)
+    out = wbc.solve(cfg, bad, ref)
+    same["a NaN lane at B=64 through the cached graph, quarantined"] = (
+        len(graph.entries()) == n_graphs
+        and same_bits(out, wbc._solve_eager(cfg, bad, ref))
+        and not bool(out.sol.converged[1])
+        and bool((out.sol.x[1] == 0).all())
+        and bool(torch.isfinite(out.sol.x).all())
+        and bool(torch.isfinite(torch.cat([out.tau[:1], out.tau[2:]])).all()))
+    counters = (cuda_chol.chol_factor, cuda_chol.chol_sub)
+
+    def counts():
+        return tuple(f.launches for f in counters)
+
+    n0 = counts()
+    wbc._solve_eager(cfg, st, ref)
+    eager_n = tuple(b - a for a, b in zip(n0, counts()))
+    replays = []
+    for _ in range(3):
+        n0 = counts()
+        wbc.solve(cfg, st, ref)
+        replays.append(tuple(b - a for a, b in zip(n0, counts())))
+    same["counters: a replay adds an eager call's launches"] = (
+        all(r == eager_n for r in replays)
+        and wbc_entry(64).launches[:2] == eager_n)
+    print(f"[wbc graph] graphed wbc.solve and solve_qp against their eager "
+          f"bodies, every output bit for bit (EngineConfig(), "
+          f"SolverConfig(), float32, problems.wbc_problem; captured on one "
+          f"draw, replayed on another): {json.dumps(same)}; {n_graphs} "
+          f"graphs cached; an eager call launches {eager_n[0]} SPD factors "
+          f"and {eager_n[1]} substitutions, a replay adds {replays[0]} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(all(same.values()), "the graphed wbc.solve and solve_qp equal "
+          "their eager bodies bit for bit")
+    for B in batches:
+        w, qe = wbc_entry(B), qp_entry(B)
+        print(f"[wbc graph] {card}: B={B}: wbc.solve's graph: capture "
+              f"{w.capture_s:.3f} s, memory pool {w.pool_bytes} bytes; "
+              f"solve_qp's graph: capture {qe.capture_s:.3f} s, memory pool "
+              f"{qe.pool_bytes} bytes", flush=True)
+
+    # ---- (b) wall latency a call, graphed and eager in turns ---------------
+    for B in batches:
+        st, ref = probs[B]
+        entry = wbc_entry(B)
+        fns = {"eager": lambda: wbc._solve_eager(cfg, st, ref),
+               "graphed": lambda: wbc.solve(cfg, st, ref)}
+        lat = {"eager": [], "graphed": []}
+        enqueue = {"eager": [], "graphed": []}
+        rounds, block = (3, 100) if B == 1 else (1, 100)
+        for _ in range(rounds):
+            for label in ("eager", "graphed", "graphed", "eager"):
+                for _ in range(block):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    out = fns[label]()
+                    t1 = time.perf_counter()
+                    torch.cuda.synchronize()
+                    lat[label].append(1e3 * (time.perf_counter() - t))
+                    enqueue[label].append(1e3 * (t1 - t))
+        dev_ms = event_ms(entry.graph.replay, reps=50)
+        conv = float(out.sol.converged.float().mean())
+        stats = {k: (percentile(v, 50), percentile(v, 99), float(np.mean(v)))
+                 for k, v in lat.items()}
+        check(all(np.isfinite(x) for v in stats.values() for x in v)
+              and np.isfinite(dev_ms), f"B={B}: finite times")
+
+        def side(label):
+            p50, p99, mean = stats[label]
+            return (f"{label} p50 {p50:.4f} ms, p99 {p99:.4f} ms, mean "
+                    f"{mean:.4f} ms (max {max(lat[label]):.4f}), "
+                    f"{B / mean * 1e3:.1f} solves/s, the host's enqueue time "
+                    f"p50 {percentile(enqueue[label], 50):.4f} ms")
+
+        line = f"{side('graphed')}; {side('eager')}"
+        budget = (f"; graphed p99 / the 2.5 ms budget (400 Hz): "
+                  f"{stats['graphed'][1] / budget_ms:.3f}x"
+                  if B == 1 else "")
+        print(f"[wbc latency] {card}: WBC tick latency B={B} (wbc.solve, "
+              f"each call fenced by torch.cuda.synchronize(), "
+              f"{len(lat['graphed'])} calls a side in turns: eager, graphed, "
+              f"graphed, eager): {line}; converged {conv:.4f}; the graph's "
+              f"device time {dev_ms:.4f} ms (CUDA events, 50 back-to-back "
+              f"replays){budget}", flush=True)
+
+    # ---- (c) the marginal cost of a solve in a tick scan ------------------
+    st0 = physics.initial_state(cfg, batch=(1,), device=dev)
+    chain_st = wbc.WbcState(
+        p_base=st0.p_base, R_wb=st0.R_wb, q=st0.q,
+        u=torch.zeros(1, 18, device=dev),
+        contact=torch.ones(1, 4, device=dev),
+        crawl=torch.zeros(1, dtype=torch.bool, device=dev))
+    z3, z43 = torch.zeros(1, 3, device=dev), torch.zeros(1, 4, 3, device=dev)
+    chain_ref = wbc.WbcRefs(
+        com_pos=rbd.com_position(cfg.robot, st0.p_base, st0.R_wb, st0.q),
+        com_vel=z3, com_acc=z3, rpy=z3, omega=z3, omega_dot=z3,
+        swing_pos=z43, swing_vel=z43, swing_acc=z43)
+    rng = np.random.default_rng(0)
+
+    def step(inputs, carry, k, outs):
+        dq, st_, ref_ = inputs
+        out = wbc.solve(cfg, st_._replace(q=st_.q + dq.index_select(0, k)),
+                        ref_)
+        outs[0].index_copy_(1, k, out.sol.converged.float().unsqueeze(1))
+        return (carry[0] + out.tau,)
+
+    def chain(K):
+        dq = torch.as_tensor(rng.normal(size=(K, 12)) * 0.01,
+                             dtype=torch.float32, device=dev)
+        conv = torch.zeros(1, K, device=dev)
+
+        def run():
+            acc = graph.scan(("wbc chain", cfg), step, (dq, chain_st,
+                                                        chain_ref),
+                             (torch.zeros(1, 12, device=dev),), (conv,), K)
+            torch.cuda.synchronize()
+            return acc
+
+        acc = run()                                   # the capture
+        ts = []
+        for _ in range(20):
+            t = time.perf_counter()
+            acc = run()
+            ts.append(time.perf_counter() - t)
+        check(bool(torch.isfinite(acc[0]).all()), f"K={K}: finite torques")
+        return np.asarray(ts), float(conv.mean())
+
+    graph.clear()
+    t64, _ = chain(64)
+    t256, conv_c = chain(256)
+    marg = (t256 - t64.mean()) / (256 - 64)
+    marg_ms, marg_p99 = float(marg.mean() * 1e3), percentile(marg * 1e3, 99)
+    check(np.isfinite(marg_ms) and np.isfinite(marg_p99),
+          "finite marginal times")
+    scans = [e for e in graph.entries() if e.k is not None]
+    print(f"[wbc latency] {card}: the marginal WBC solve in a tick scan, "
+          f"B=1 (graph.scan of K wbc.solve ticks, tick k at q0 + dq[k]; 20 "
+          f"calls of each K, each fenced by torch.cuda.synchronize(); "
+          f"t(K) = a + b K over K = 64, 256): b mean {marg_ms:.4f} ms, p99 "
+          f"{marg_p99:.4f} ms; b p99 / the 2.5 ms budget "
+          f"{marg_p99 / budget_ms:.3f}x; a "
+          f"{1e3 * t64.mean() - 64 * marg_ms:.4f} ms; t(64) mean "
+          f"{1e3 * t64.mean():.3f} ms, t(256) mean "
+          f"{1e3 * t256.mean():.3f} ms; converged {conv_c:.4f}; the scans' "
+          f"pools {[e.pool_bytes for e in scans]} bytes", flush=True)
+    graph.clear()
+
+
 def main():
     import numpy as np
     import torch
@@ -2325,9 +2578,10 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    alone = sys.argv[1:] == ["--phase", "21"]
+    alone = {("--phase", "21"): graphed_plan,
+             ("--phase", "22"): wbc_latency}.get(tuple(sys.argv[1:]))
     if sys.argv[1:] and not alone:
-        raise SystemExit(f"usage: {sys.argv[0]} [--phase 21]")
+        raise SystemExit(f"usage: {sys.argv[0]} [--phase 21 | --phase 22]")
 
     # ---- 1. device ------------------------------------------------------
     print(f"[device] python {sys.version.split()[0]}, torch "
@@ -2350,7 +2604,7 @@ def main():
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     print_ptxas(_kernels, "resident_ipm")
     if alone:
-        graphed_plan(dev, card)
+        alone(dev, card)
         print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2567,6 +2821,7 @@ def main():
     bf16 = stage_bf16(dev, card, x0, refs, x1, refs1)
     graphed_tick(dev, card, main_path)
     graphed_plan(dev, card)
+    wbc_latency(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "resident_ipm", "route": "cuda",

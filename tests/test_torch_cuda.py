@@ -4,7 +4,8 @@ factor-and-solve (csrc/spd_chol.cu) and the fused Riccati passes
 (csrc/fused_riccati.cu); the closed loop's tick replayed from a
 captured CUDA graph (runtime/graph.py) against the eager tick; and
 planner.plan and the cycle's head replayed from their graphs against
-their eager bodies.
+their eager bodies; wbc.solve and solve_qp replayed from theirs against
+theirs.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no JAX (the GPU machine has none) and takes its seed from its own
@@ -565,10 +566,15 @@ def _short_cycles(cfg, **gait):
 
 
 def _eager(fn, *args):
-    """fn(*args) with the cycle's ticks run eagerly on the card."""
+    """fn(*args) with the cycle's ticks, and each tick's WBC solve, run
+    eagerly on the card."""
+    from apf_quadruped_tpu_torch import wbc
+    from apf_quadruped_tpu_torch.ops import qpsolve
     from apf_quadruped_tpu_torch.runtime import loop
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(loop, "_scan_ticks", loop._scan_ticks_eager)
+        mp.setattr(wbc, "solve", wbc._solve_eager)
+        mp.setattr(qpsolve, "solve_qp", qpsolve._solve_qp_eager)
         return fn(*args)
 
 
@@ -1459,3 +1465,242 @@ def test_sweep_with_graphed_head_equals_eager_head(dev):
     eager = _eager_head(sweep.run_batch, cfg, scn, 2)
     _assert_bitwise(graphed, eager)
     assert len(_calls()) == 2
+
+
+# ---------------------------------------------------------------------------
+# wbc.solve and solve_qp replayed from captured CUDA graphs
+# (runtime/graph.call) against their eager bodies, bit for bit
+# ---------------------------------------------------------------------------
+
+# the cases of tests/test_torch_wbc_graph.py: (ref_exact, cone bases,
+# contact, crawl), the crawl flag a per-lane tensor or a Python bool
+WBC_CASES = {f"ref_exact={r} cone_rot={c} {m}": (r, c, m, "lanes")
+             for r in (False, True) for c in (False, True)
+             for m in ("standing", "trot")}
+WBC_CASES |= {f"ref_exact=True trot crawl={v}": (True, False, "trot", v)
+              for v in (False, True)}
+
+
+def _wbc_case(name, B, dev, seed=0):
+    """(cfg, WbcState, WbcRefs) in float32 on the card: the WBC latency
+    benchmark's states (problems.wbc_problem) with the case's branches."""
+    from apf_quadruped_tpu_torch.sim import terrain
+    ref_exact, cone, mode, crawl = WBC_CASES[name]
+    cfg = EngineConfig(wbc=WbcConfig(ref_exact=ref_exact,
+                                     slack_weight_trot=1e6))
+    st, ref = problems.wbc_problem(cfg, B, seed=seed, device=dev)
+    gen = torch.Generator(dev).manual_seed(seed)
+    if mode == "trot":
+        st = st._replace(contact=torch.tensor(
+            [1.0, 0.0, 0.0, 1.0], device=dev).expand(B, 4))
+    if cone:
+        n = torch.randn(B, 4, 3, generator=gen, device=dev) * 0.2
+        n[..., 2] = 1.0
+        st = st._replace(cone_rot=terrain.basis_from_normal(
+            n / torch.linalg.vector_norm(n, dim=-1, keepdim=True)))
+    else:
+        st = st._replace(cone_rot=None)
+    st = st._replace(crawl=torch.arange(B, device=dev) % 2 == 1
+                     if crawl == "lanes" else crawl)
+    ref = ref._replace(
+        com_pos=ref.com_pos + torch.tensor([0.0, 0.02, -0.03], device=dev),
+        com_vel=torch.randn(B, 3, generator=gen, device=dev) * 0.1,
+        swing_pos=torch.randn(B, 4, 3, generator=gen, device=dev) * 0.02)
+    return cfg, st, ref
+
+
+def _assert_same_bits(a, b):
+    """Every tensor leaf equal in dtype, shape and bits, NaN included."""
+    from apf_quadruped_tpu_torch.runtime import graph
+    la, lb = graph._tensors(a), graph._tensors(b)
+    assert len(la) == len(lb)
+    for i, (x, y) in enumerate(zip(la, lb)):
+        assert x.dtype == y.dtype and x.shape == y.shape, i
+        if x.is_floating_point():
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        assert torch.equal(x, y), i
+
+
+def _wbc_graphs():
+    from apf_quadruped_tpu_torch import wbc
+    from apf_quadruped_tpu_torch.ops import qpsolve
+    return [e for e in _calls()
+            if isinstance(e.outs, (wbc.WbcOutput, qpsolve.QPSolution))]
+
+
+@pytest.mark.parametrize("B", [1, 64, 1024])
+@pytest.mark.parametrize("case", list(WBC_CASES))
+def test_graphed_wbc_equals_eager(dev, case, B):
+    """wbc.solve on the card replays one graph, captured on one draw of
+    states and replayed on another, each bit for bit the eager body's and
+    finite, not all zero.  (A drawn lane may stay unconverged within the
+    iteration budget, eager and graphed alike.)"""
+    from apf_quadruped_tpu_torch import wbc
+    from apf_quadruped_tpu_torch.runtime import graph
+    graph.clear()
+    for seed in (0, 1):
+        cfg, st, ref = _wbc_case(case, B, dev, seed)
+        out = wbc.solve(cfg, st, ref)
+        _assert_same_bits(out, wbc._solve_eager(cfg, st, ref))
+        assert len(graph.entries()) == 1
+        assert bool(torch.isfinite(out.tau).all())
+        assert bool((out.tau != 0).any())
+    graph.clear()
+
+
+def _free_qp(rng, B, dev):
+    """A make_qp QP with no equality rows (its one padded row masked)."""
+    from apf_quadruped_tpu_torch.ops import qpsolve
+    n, m = 30, 68
+    M = rng.normal(size=(B, n, n))
+    G = rng.normal(size=(B, m, n))
+    data = [np.einsum("bij,bkj->bik", M, M) / n + np.eye(n),
+            rng.normal(size=(B, n)), G, rng.uniform(0.5, 1.0, (B, m))]
+    return qpsolve.make_qp(*(torch.as_tensor(v, dtype=torch.float32,
+                                             device=dev) for v in data))
+
+
+@pytest.mark.parametrize("B", [1, 64, 1024])
+@pytest.mark.parametrize("kind", ["wbc standing", "wbc ref_exact trot",
+                                  "no equality rows"])
+def test_graphed_qp_equals_eager(rng, dev, kind, B):
+    """solve_qp on the card replays one graph a configuration and QP
+    layout, bit for bit its eager body on WBC-shaped QPs and on a make_qp
+    QP with no equality rows."""
+    from apf_quadruped_tpu_torch import wbc
+    from apf_quadruped_tpu_torch.ops import qpsolve
+    from apf_quadruped_tpu_torch.runtime import graph
+    graph.clear()
+    for seed in (0, 1):
+        if kind == "no equality rows":
+            cfg_s, qp = SolverConfig(), _free_qp(rng, B, dev)
+        else:
+            name = ("ref_exact=False cone_rot=False standing"
+                    if kind == "wbc standing"
+                    else "ref_exact=True cone_rot=True trot")
+            cfg, st, ref = _wbc_case(name, B, dev, seed)
+            cfg_s, (qp, _) = cfg.solver, wbc._build_qp(cfg, st, ref)
+        sol = qpsolve.solve_qp(qp, cfg_s)
+        _assert_same_bits(sol, qpsolve._solve_qp_eager(qp, cfg_s))
+        assert len(graph.entries()) == 1
+        assert bool(torch.isfinite(sol.x).all())
+        assert bool((sol.x != 0).any())
+    graph.clear()
+
+
+def test_graphed_wbc_quarantines_a_nan_lane(dev):
+    """A NaN in one lane's joint angles through the cached graph: the QP
+    comes back zero and unconverged in that lane, the others finite, every
+    output bit for bit the eager body's."""
+    from apf_quadruped_tpu_torch import wbc
+    from apf_quadruped_tpu_torch.runtime import graph
+    cfg, st, ref = _wbc_case("ref_exact=False cone_rot=False standing", 64,
+                             dev)
+    graph.clear()
+    wbc.solve(cfg, st, ref)                   # capture on finite data
+    q = st.q.clone()
+    q[1, 0] = float("nan")
+    st = st._replace(q=q)
+    out = wbc.solve(cfg, st, ref)
+    assert len(graph.entries()) == 1
+    assert not bool(out.sol.converged[1])
+    assert bool((out.sol.x[1] == 0).all())
+    assert bool(torch.isfinite(out.sol.x).all())
+    assert bool(torch.isfinite(torch.cat([out.tau[:1], out.tau[2:]])).all())
+    _assert_same_bits(out, wbc._solve_eager(cfg, st, ref))
+    graph.clear()
+
+
+@pytest.mark.parametrize("fn", ["wbc.solve", "solve_qp"])
+def test_graphed_wbc_counts_one_calls_launches(dev, fn):
+    """The counters advance by an eager call's SPD launches (32 factors:
+    2 + 2 x 15 iterations) at the capturing call and at each replay."""
+    from apf_quadruped_tpu_torch import wbc
+    from apf_quadruped_tpu_torch.ops import cuda_chol, qpsolve
+    from apf_quadruped_tpu_torch.runtime import graph
+    counters = (cuda_chol.chol_factor, cuda_chol.chol_sub,
+                cuda_chol.chol_solve)
+
+    def counts():
+        return np.array([f.launches for f in counters])
+
+    cfg, st, ref = _wbc_case("ref_exact=True cone_rot=True trot", 64, dev)
+    qp, _ = wbc._build_qp(cfg, st, ref)
+    eager, graphed = {
+        "wbc.solve": (lambda: wbc._solve_eager(cfg, st, ref),
+                      lambda: wbc.solve(cfg, st, ref)),
+        "solve_qp": (lambda: qpsolve._solve_qp_eager(qp, cfg.solver),
+                     lambda: qpsolve.solve_qp(qp, cfg.solver))}[fn]
+    n0 = counts()
+    eager()
+    one = counts() - n0
+    assert one[0] == 2 + 2 * cfg.solver.iters and one[1] > 0
+    assert one[2] == 0
+    graph.clear()
+    for _ in range(3):
+        n0 = counts()
+        graphed()
+        assert (counts() - n0 == one).all()
+    graph.clear()
+
+
+@pytest.mark.parametrize("case", ["ref_exact=False cone_rot=False standing",
+                                  "ref_exact=True cone_rot=True trot",
+                                  "ref_exact=True trot crawl=True"])
+def test_wbc_replay_makes_no_sync(dev, case):
+    """After the capture a replay of wbc.solve and of solve_qp makes no
+    stream sync and no copy from host memory."""
+    from apf_quadruped_tpu_torch import wbc
+    from apf_quadruped_tpu_torch.ops import qpsolve
+    from apf_quadruped_tpu_torch.runtime import graph
+    cfg, st, ref = _wbc_case(case, 64, dev)
+    qp, _ = wbc._build_qp(cfg, st, ref)
+    graph.clear()
+    wbc.solve(cfg, st, ref)
+    qpsolve.solve_qp(qp, cfg.solver)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        wbc.solve(cfg, st, ref)
+        qpsolve.solve_qp(qp, cfg.solver)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert len(graph.entries()) == 2
+    graph.clear()
+
+
+def test_graphed_sweep_holds_no_wbc_graph(dev):
+    """sweep.run_batch at B=64: the WBC solve runs inside the tick's graph
+    (no graph of its own is cached), and the tick graph's launches a
+    replay are an eager tick's, its WBC solve eager too."""
+    from apf_quadruped_tpu_torch import wbc
+    from apf_quadruped_tpu_torch.ops import qpsolve
+    from apf_quadruped_tpu_torch.runtime import graph, loop, sweep
+    cfg = _short_cycles(sweep.cli_config())
+    scn = sweep.random_scenarios(cfg, 64, seed=0, use_native=False,
+                                 device=dev)
+    seen = {}
+    real = loop._scan_ticks
+
+    def spy(cfg_, cyc, carry, n):
+        seen.update(cyc=cyc, carry=carry)
+        return real(cfg_, cyc, carry, n)
+
+    graph.clear()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(loop, "_scan_ticks", spy)
+        res = sweep.run_batch(cfg, scn, 1)
+    (entry,) = _ticks()
+    assert len(_calls()) == 2 and _wbc_graphs() == []
+    n0 = graph._counts()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(wbc, "solve", wbc._solve_eager)
+        mp.setattr(qpsolve, "solve_qp", qpsolve._solve_qp_eager)
+        loop._scan_ticks_eager(cfg, seen["cyc"], seen["carry"], 1)
+    one = tuple(b - a for a, b in zip(n0, graph._counts()))
+    assert entry.launches == one
+    assert entry.launches[0] == 2 + 2 * 15 + 4
+    assert len(graph.entries()) == 3
+    assert bool(torch.isfinite(res.final_com).all())
+    graph.clear()
