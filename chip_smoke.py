@@ -4,6 +4,7 @@
     python3 chip_smoke.py          # from the repository root, one CUDA card
     python3 chip_smoke.py --phase 21   # the build, then phase 21 alone
     python3 chip_smoke.py --phase 22   # the build, then phase 22 alone
+    python3 chip_smoke.py --phase 23   # the build, then phase 23 alone
 
 Phases; each raises on failure, so any failure exits non-zero:
   1. device: torch/CUDA versions, the card's name and power limit;
@@ -99,16 +100,16 @@ Phases; each raises on failure, so any failure exits non-zero:
      flag;
  20. the graphed tick: against the eager tick (loop._scan_ticks_eager),
      every LoopState leaf and CycleMetrics field bit for bit over two
-     cycles (cut to 20 ticks) at B=64: trot on flat ground, a height
-     world, early touch-down, crawl, adaptive, other scenarios through
-     the cached graph, two shards on one card; then at the CLI's sweep
-     configuration, B=64 and B=1024: closed-loop scenario-ticks/s and ms
-     a tick over 200-tick cycles, the capture's time and memory pool, a
+     cycles (cut to 20 ticks) at B=64: trot on flat ground, a height world,
+     early touch-down, crawl, pace, adaptive, other scenarios through the
+     cached graph, two shards on one card; then at the CLI's sweep
+     configuration, B=64 and B=1024: closed-loop scenario-ticks/s and ms a
+     tick over 200-tick cycles, the capture's time and memory pool, a
      tick's device time by CUDA events over back-to-back replays and the
      device's idle share, 20-tick cycles graphed and eager in turns, the
      launch calls a tick (phase 10), and the tick's device time by stage
-     (references, WBC build, QP, torque map, physics, margin, observer
-     and trace), each stage captured alone and replayed;
+     (references, WBC build, QP, torque map, physics, margin, observer and
+     trace), each stage captured alone and replayed;
  21. the graphed plan and cycle head (runtime/graph.call): planner.plan
      against its eager body (planner._plan_eager) bit for bit at B=2048,
      H=20 for every backend and option (auto, with cone_rot, stage_bf16,
@@ -133,6 +134,18 @@ Phases; each raises on failure, so any failure exits non-zero:
      and the B=1 p99 against the reference's 2.5 ms budget (400 Hz); the
      marginal solve in a tick scan (graph.scan of K = 64 and 256 solves
      at B=1, t(K) = a + b K).  Reported, not gated on the budget.
+ 23. every gait mode of the command line and replan cycles after the
+     first against the JAX package's float32 runs
+     (tests/data/mode_golden.npz): trot 3 cycles, crawl 1, pace 2 and
+     adaptive 2 at the CLI's sweep configuration per mode, on the
+     golden's B=2 scenarios, cycle by cycle through sweep.init_batch /
+     step_batch (graphed head, tick and tail: the resident IPM at H=20 and
+     40, the SPD kernels at n=30 and 18), every leaf of every cycle with
+     phase 9(c)'s gate (`golden_gate`), the flags and counts that the JAX
+     float64 run itself flips from a start moved by 1e-12 rad (they must
+     be TWIN_FLIPS) and a fake_crawl that rounding decides left out and
+     named; per case the worst diff / gate, the wall time and the launch
+     counts.
 The eager sides of phases 10, 20 and 21 swap in the eager bodies:
 `eager_ticks` the tick's, `eager_plans` the plan's, the head's and the
 tail's, and both those of wbc.solve and solve_qp (`eager_wbc`).
@@ -1219,15 +1232,15 @@ def named_leaves(prefix, tree):
             yield key, value
 
 
-def golden_gate(g, head, trees):
+def golden_gate(g, head, trees, skip=()):
     """Hold each leaf of `trees` ({"state": LoopState, "metrics":
     CycleMetrics}) to the JAX package's float32 run, the golden's keys
-    "f32.<head><prefix>.<path>".  Gate per leaf: |port - JAX f32| <= 5
-    |JAX f32 - JAX f64| + 1e-4 (1 + |JAX f64|max): the port's float32 and
-    the JAX package's float32 are two float32 roundings of one float64
-    trajectory, and over 200 ticks of stiff penalty contact their spread
-    is the spread between float32 and float64, not float32 epsilon.
-    Returns the worst (diff / gate, key)."""
+    "f32.<head><prefix>.<path>", but those in `skip`.  Gate per leaf:
+    |port - JAX f32| <= 5 |JAX f32 - JAX f64| + 1e-4 (1 + |JAX f64|max):
+    the port's float32 and the JAX package's float32 are two float32
+    roundings of one float64 trajectory, and over 200 ticks of stiff
+    penalty contact their spread is the spread between float32 and
+    float64, not float32 epsilon.  Returns the worst (diff / gate, key)."""
     from apf_quadruped_tpu_torch import convert
 
     worst = (0.0, "")
@@ -1235,7 +1248,7 @@ def golden_gate(g, head, trees):
         stem = f"f32.{head}{prefix}."
         keys = [k for k in g if k.startswith(stem)]
         check(keys, f"the golden has {stem}*")
-        for key in keys:
+        for key in (k for k in keys if k not in skip):
             obj = tree
             for part in key[len(stem):].split("."):
                 obj = getattr(obj, part)
@@ -1776,7 +1789,7 @@ def graphed_tick(dev, card, main_path):
     (runtime/graph.py), against the eager tick (loop._scan_ticks_eager)
     bit for bit at phase 9(b)'s B=64 and two cycles (cut to 20 ticks each
     for time): trot on flat ground without early touch-down, a height
-    world, early touch-down, crawl, adaptive, a second batch of other
+    world, early touch-down, crawl, pace, adaptive, a second batch of other
     scenarios through the cached graph, and step_batch_sharded over two
     shards on one card.  Then its numbers at the CLI's sweep configuration,
     B=64 and B=1024: closed-loop cycles of 200 ticks after the capturing
@@ -1797,7 +1810,8 @@ def graphed_tick(dev, card, main_path):
 
     def short(cfg, **gait):
         return cfg.replace(gait=dataclasses.replace(
-            cfg.gait, trot_cycle=0.05, crawl_cycle=0.05, **gait))
+            cfg.gait, trot_cycle=0.05, crawl_cycle=0.05, fixed_cycle=0.05,
+            **gait))
 
     def leaves(tree):
         if isinstance(tree, torch.Tensor):
@@ -1813,7 +1827,7 @@ def graphed_tick(dev, card, main_path):
     B, cycles = main_path["scn"].target_xy.shape[0], 2
 
     def case(name, seed=0):
-        mode = name if name in ("crawl", "adaptive") else "trot"
+        mode = name if name in ("crawl", "pace", "adaptive") else "trot"
         cfg = short(sweep.cli_config(gait=mode), early_td=name != "trot")
         scn = sweep.random_scenarios(cfg, B, seed=seed, device=dev)
         terr = (terrain.block(cfg.sim, batch=(B,), device=dev)
@@ -1826,7 +1840,8 @@ def graphed_tick(dev, card, main_path):
 
     t0 = time.perf_counter()
     same = {}
-    for name in ("trot", "height", "early_td", "crawl", "adaptive"):
+    for name in ("trot", "height", "early_td", "crawl", "pace",
+                 "adaptive"):
         args = case(name)
         graph.clear()
         graphed = two_cycles(*args)
@@ -2561,6 +2576,112 @@ def wbc_latency(dev, card):
     graph.clear()
 
 
+# (case, cycle) of tests/data/mode_golden.npz -> the flag and count leaves
+# that the JAX float64 run itself flips when its start's joint angles move
+# by 1e-12 rad (the golden's "f64p"); tests/test_torch_loop_modes.py holds
+# the CPU run to the same list and checks that the two agree
+TWIN_FLIPS = {("adaptive", 1): {"metrics.mpc_iters"}}
+
+
+def gait_modes(dev, card):
+    """Phase 23: the closed loop in every gait mode of the command line and
+    in replan cycles after the first, against the JAX package's float32
+    runs (tests/data/mode_golden.npz, written by
+    tests/data/make_mode_golden.py): trot 3 cycles (the mirrored warm
+    start of pair B), crawl 1 (H=40), pace 2 (a fixed stride) and adaptive
+    2 (the in-loop trot <-> crawl switch), at the CLI's sweep configuration
+    per mode on the golden's B=2 scenarios, cycle by cycle through
+    sweep.init_batch / step_batch as the golden was written: the graphed
+    head, tick and tail, the resident IPM at H=20 and 40, the SPD kernels
+    at n=30 and 18.  Every leaf of every cycle with golden_gate, but the
+    flags and counts that the JAX float64 run itself flips when its start's
+    joint angles move by 1e-12 rad (the golden's "f64p"; they must be
+    TWIN_FLIPS), and fake_crawl (rob_mean < ApfConfig.crawl_threshold) in
+    a lane whose JAX float32 rob_mean lies within rob_mean's gate of the
+    threshold, where rounding decides it: named with JAX's and the port's
+    rob_mean and their margins, and the lanes away from it held exactly.
+    Per case the worst diff / gate and its leaf, the wall time and the
+    launch counts: the resident IPM once a cycle, the SPD kernels every
+    tick."""
+    import torch
+
+    from apf_quadruped_tpu_torch import convert
+    from apf_quadruped_tpu_torch.runtime import sweep
+
+    with np.load(ROOT / "tests" / "data" / "mode_golden.npz") as f:
+        g = {k: f[k] for k in f.files}
+    scn = convert.unflatten(g, "scn", sweep.Scenario, dev)
+    scn = sweep.Scenario(*(v.to(torch.float32) for v in scn))
+    cycles = {}
+    for key in g:
+        hit = re.match(r"f32\.(\w+)\.c(\d+)\.", key)
+        if hit:
+            cycles[hit[1]] = max(cycles.get(hit[1], 0), int(hit[2]) + 1)
+    check(list(cycles) == ["trot", "crawl", "pace", "adaptive"],
+          f"the golden's cases {cycles}")
+    t_all = time.perf_counter()
+    for case, n in cycles.items():
+        cfg = sweep.cli_config(gait=case)
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = sweep.init_batch(cfg, scn)
+        worst, flipped, rounded = (0.0, ""), [], []
+        for k in range(n):
+            st, m = sweep.step_batch(cfg, scn, st, 1)
+            head = f"{case}.c{k}."
+            flips = {key[len("f64p." + head):] for key in g
+                     if key.startswith("f64p." + head)
+                     and g[key].dtype.kind in "bi"
+                     and not np.array_equal(g[key], g["f64" + key[4:]])}
+            check(flips == TWIN_FLIPS.get((case, k), set()),
+                  f"{case} cycle {k}: the flags the JAX float64 twin flips "
+                  f"{flips}")
+            flipped += sorted(f"c{k}.{leaf}" for leaf in flips)
+            skip = {f"f32.{head}{leaf}" for leaf in flips}
+            # fake_crawl where rob_mean's gate spans the threshold
+            rob32 = g[f"f32.{head}metrics.rob_mean"][:, 0].astype(float)
+            rob64 = g[f"f64.{head}metrics.rob_mean"][:, 0]
+            margin = np.abs(rob32 - cfg.apf.crawl_threshold)
+            near = margin <= (5.0 * np.abs(rob32 - rob64).max()
+                              + 1e-4 * (1.0 + np.abs(rob64).max()))
+            if near.any():
+                key = f"f32.{head}metrics.fake_crawl"
+                skip.add(key)
+                port = convert.to_numpy(m.fake_crawl)[:, 0]
+                check(np.array_equal(port[~near], g[key][~near, 0]),
+                      f"{key} in the lanes away from the threshold")
+                rob = convert.to_numpy(m.rob_mean)[:, 0].astype(float)
+                rounded += [(f"c{k}", int(lane), float(rob32[lane]),
+                             float(margin[lane]), float(rob[lane]),
+                             float(rob[lane] - cfg.apf.crawl_threshold))
+                            for lane in np.flatnonzero(near)]
+            gw = golden_gate(g, head, {"state": st, "metrics": m}, skip)
+            worst = max(worst, (gw[0], gw[1][len("f32."):]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        n_ticks = round(float(st.sim.t[0]) / (n * cfg.sim.dt))
+        per_tick = {k: v / (n * n_ticks) for k, v in launches.items()}
+        print(f"[modes] {card}: {case}, B={scn.target_xy.shape[0]}, {n} "
+              f"cycles of {n_ticks} ticks in {wall:.1f} s "
+              f"({1e3 * wall / (n * n_ticks):.2f} ms a tick), crawling in "
+              f"the last cycle {m.crawling[:, 0].tolist()}, R22 "
+              f"{st.sim.R_wb[:, 2, 2].tolist()}; vs JAX float32 golden: "
+              f"every leaf within its gate, worst {worst[1]} at "
+              f"{worst[0]:.3f} of its gate; left out (flipped by the JAX "
+              f"float64 twin): {flipped or 'none'}; fake_crawl left out "
+              f"(cycle, lane, JAX f32 rob_mean, |it - threshold|, port "
+              f"rob_mean, it - threshold): {rounded or 'none'}; launches "
+              f"{launches} ({per_tick} a tick)", flush=True)
+        check(launches["resident_ipm"] == n,
+              f"{case}: the resident IPM once a cycle")
+        check(all(v > 0 for v in launches.values()),
+              f"{case}: every kernel of the loop launched")
+    print(f"[modes] phase 23 in {time.perf_counter() - t_all:.1f} s",
+          flush=True)
+
+
 def main():
     import numpy as np
     import torch
@@ -2579,9 +2700,11 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     alone = {("--phase", "21"): graphed_plan,
-             ("--phase", "22"): wbc_latency}.get(tuple(sys.argv[1:]))
+             ("--phase", "22"): wbc_latency,
+             ("--phase", "23"): gait_modes}.get(tuple(sys.argv[1:]))
     if sys.argv[1:] and not alone:
-        raise SystemExit(f"usage: {sys.argv[0]} [--phase 21 | --phase 22]")
+        raise SystemExit(f"usage: {sys.argv[0]} [--phase 21 | --phase 22 "
+                         f"| --phase 23]")
 
     # ---- 1. device ------------------------------------------------------
     print(f"[device] python {sys.version.split()[0]}, torch "
@@ -2822,6 +2945,7 @@ def main():
     graphed_tick(dev, card, main_path)
     graphed_plan(dev, card)
     wbc_latency(dev, card)
+    gait_modes(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "resident_ipm", "route": "cuda",
