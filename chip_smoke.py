@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phase 21   # the build, then phase 21 alone
     python3 chip_smoke.py --phase 22   # the build, then phase 22 alone
     python3 chip_smoke.py --phase 23   # the build, then phase 23 alone
+    python3 chip_smoke.py --phase 24   # the build, then phase 24 alone
 
 Phases; each raises on failure, so any failure exits non-zero:
   1. device: torch/CUDA versions, the card's name and power limit;
@@ -129,8 +130,9 @@ Phases; each raises on failure, so any failure exits non-zero:
      the WBC latency benchmark's states (problems.wbc_problem, seed 0,
      EngineConfig(), SolverConfig(), float32), a NaN lane, the launch
      counters; the WBC tick latency p50/p99/mean a call, graphed and
-     eager in turns (600 calls a side at B=1, 200 at the others), with
-     the host's enqueue time, the graph's device time, capture and pool,
+     eager in turns (600 graphed and 300 eager calls at B=1, 200 and 100
+     at the others), with the host's enqueue time, the graph's device
+     time, capture and pool,
      and the B=1 p99 against the reference's 2.5 ms budget (400 Hz); the
      marginal solve in a tick scan (graph.scan of K = 64 and 256 solves
      at B=1, t(K) = a + b K).  Reported, not gated on the budget.
@@ -146,6 +148,19 @@ Phases; each raises on failure, so any failure exits non-zero:
      be TWIN_FLIPS) and a fake_crawl that rounding decides left out and
      named; per case the worst diff / gate, the wall time and the launch
      counts.
+ 24. the closed loop where phase 23's golden does not reach, against the
+     JAX package's float32 runs with phase 23's rules (TWIN_FLIPS_24), a
+     share of ticks within one tick, and a lane left out from the cycle
+     where the JAX float64 run turns chaotic (CHAOS_Q):
+     adaptive switching one lane into crawl while the other trots and a
+     lane leaving crawl (tests/data/switch_golden.npz, B=2, 3 cycles), the
+     `run` command's closed loop on the slope and the stairs
+     (world_golden.npz, B=1, 2 cycles) and the CLI's sweep configuration
+     with one opt-in option changed per case (option_golden.npz: qd_limit,
+     foothold off, min_exit, rep_field_in_step, base_box, base_acc,
+     sqp_iters 2, ref_exact, early touch-down off; B=2, 2 cycles); per
+     case the worst diff / gate, the wall time, the launch counts and the
+     graphs captured with their pools.
 The eager sides of phases 10, 20 and 21 swap in the eager bodies:
 `eager_ticks` the tick's, `eager_plans` the plan's, the head's and the
 tail's, and both those of wbc.solve and solve_qp (`eager_wbc`).
@@ -158,6 +173,7 @@ The last two lines are the kernels' JSON record and the device JSON line.
 Uses no JAX: the card's machine has none.
 """
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -1232,7 +1248,13 @@ def named_leaves(prefix, tree):
             yield key, value
 
 
-def golden_gate(g, head, trees, skip=()):
+# the CycleMetrics that are a share of the cycle's ticks (or leg-ticks) a
+# flag was set in: the WBC's convergence, a foot slipping, an early
+# touch-down latched; leg-ticks per tick
+TICK_SHARES = {"qp_converged": 1, "slip_ticks": 1, "early_td_frac": 4}
+
+
+def golden_gate(g, head, trees, skip=(), ticks=None):
     """Hold each leaf of `trees` ({"state": LoopState, "metrics":
     CycleMetrics}) to the JAX package's float32 run, the golden's keys
     "f32.<head><prefix>.<path>", but those in `skip`.  Gate per leaf:
@@ -1240,7 +1262,11 @@ def golden_gate(g, head, trees, skip=()):
     the port's float32 and the JAX package's float32 are two float32
     roundings of one float64 trajectory, and over 200 ticks of stiff
     penalty contact their spread is the spread between float32 and
-    float64, not float32 epsilon.  Returns the worst (diff / gate, key)."""
+    float64, not float32 epsilon.  An MPC iteration count may flip by one,
+    and with `ticks` (the cycle's ticks; phase 24) a share of ticks by one
+    tick (TICK_SHARES): a tick's flag decided at its threshold, as a WBC
+    solve that converges at its tolerance, is decided by rounding.
+    Returns the worst (diff / gate, key)."""
     from apf_quadruped_tpu_torch import convert
 
     worst = (0.0, "")
@@ -1260,6 +1286,9 @@ def golden_gate(g, head, trees, skip=()):
                     + 1e-4 * (1.0 + float(np.abs(ref64).max())))
             if g[key].dtype.kind in "iu":
                 gate = max(gate, 1.0)     # an MPC iteration count may flip
+            share = TICK_SHARES.get(key.rsplit(".", 1)[1])
+            if ticks and prefix == "metrics" and share:
+                gate = max(gate, 1.0 / (share * ticks))
             worst = max(worst, (diff / gate, key))
             check(diff <= gate, f"{key}: port vs JAX float32 {diff:.3g} "
                   f"> gate {gate:.3g}")
@@ -2379,9 +2408,10 @@ def wbc_latency(dev, card):
     captured on one draw and replayed on another, a NaN lane at B=64
     through the cached graph, and the launch counters against an eager
     call's; (b) the wall latency of a call, each fenced by
-    torch.cuda.synchronize(), graphed and eager in turns (600 calls a side
-    at B=1, 200 at B=64, 128, 1024), with the host's enqueue time, the
-    graph's device time by CUDA events, its capture and pool; (c) the
+    torch.cuda.synchronize(), graphed and eager in turns (600 graphed and
+    300 eager calls at B=1, 200 and 100 at B=64, 128, 1024), with the
+    host's enqueue time, the graph's device time by CUDA events, its
+    capture and pool; (c) the
     marginal cost of a solve in a tick scan: graph.scan of K solves at B=1
     (tick k at q0 + dq[k]), 20 calls of each K in {64, 256}, fit
     t(K) = a + b K.  Reports the budget, does not gate on it."""
@@ -2477,10 +2507,13 @@ def wbc_latency(dev, card):
                "graphed": lambda: wbc.solve(cfg, st, ref)}
         lat = {"eager": [], "graphed": []}
         enqueue = {"eager": [], "graphed": []}
-        rounds, block = (3, 100) if B == 1 else (1, 100)
+        # the eager side's blocks are half the graphed side's: it takes
+        # 60-80 ms a call, and the graphed p99 is what the phase reports
+        rounds = 3 if B == 1 else 1
+        block = {"eager": 50, "graphed": 100}
         for _ in range(rounds):
             for label in ("eager", "graphed", "graphed", "eager"):
-                for _ in range(block):
+                for _ in range(block[label]):
                     torch.cuda.synchronize()
                     t = time.perf_counter()
                     out = fns[label]()
@@ -2508,9 +2541,10 @@ def wbc_latency(dev, card):
                   if B == 1 else "")
         print(f"[wbc latency] {card}: WBC tick latency B={B} (wbc.solve, "
               f"each call fenced by torch.cuda.synchronize(), "
-              f"{len(lat['graphed'])} calls a side in turns: eager, graphed, "
-              f"graphed, eager): {line}; converged {conv:.4f}; the graph's "
-              f"device time {dev_ms:.4f} ms (CUDA events, 50 back-to-back "
+              f"{len(lat['graphed'])} graphed and {len(lat['eager'])} eager "
+              f"calls in turns: eager, graphed, graphed, eager): {line}; "
+              f"converged {conv:.4f}; the graph's device time "
+              f"{dev_ms:.4f} ms (CUDA events, 50 back-to-back "
               f"replays){budget}", flush=True)
 
     # ---- (c) the marginal cost of a solve in a tick scan ------------------
@@ -2576,6 +2610,64 @@ def wbc_latency(dev, card):
     graph.clear()
 
 
+def take_lanes(tree, lanes):
+    """A NamedTuple tree of (B, ...) tensors at the batch rows `lanes`."""
+    return type(tree)(*(take_lanes(v, lanes) if hasattr(v, "_fields")
+                        else None if v is None else v[lanes] for v in tree))
+
+
+def golden_cycle(g, case, k, st, m, cfg, twin_flips, lanes=None,
+                 ticks=None):
+    """Hold cycle k of `case` (LoopState `st`, CycleMetrics `m`) to a
+    closed-loop golden's float32 run with golden_gate, as phases 23 and 24
+    do (phase 24 with `lanes`, the lanes held, and golden_gate's `ticks`),
+    but two kinds of leaf: the flags and counts that the JAX float64
+    run itself flips when its start's joint angles move by 1e-12 rad (the
+    golden's "f64p"; they must be twin_flips[(case, k)]), and fake_crawl
+    (rob_mean < ApfConfig.crawl_threshold) in a lane whose JAX float32
+    rob_mean lies within rob_mean's gate of the threshold, where rounding
+    decides it (the lanes away from it held exactly).  Returns (the worst
+    (diff / gate, leaf), the flipped leaves "c<k>.<leaf>", the left-out
+    lanes (cycle, lane, JAX f32 rob_mean, |it - threshold|, port rob_mean,
+    it - threshold))."""
+    from apf_quadruped_tpu_torch import convert
+
+    head = f"{case}.c{k}."
+    flips = {key[len("f64p." + head):] for key in g
+             if key.startswith("f64p." + head)
+             and g[key].dtype.kind in "bi"
+             and not np.array_equal(g[key], g["f64" + key[4:]])}
+    check(flips == twin_flips.get((case, k), set()),
+          f"{case} cycle {k}: the flags the JAX float64 twin flips {flips}")
+    skip = {f"f32.{head}{leaf}" for leaf in flips}
+    if lanes is not None and not lanes:
+        return (0.0, ""), sorted(f"c{k}.{leaf}" for leaf in flips), []
+    if lanes is not None:
+        g = {key: v[lanes] for key, v in g.items() if f".{head}" in key}
+        st, m = take_lanes(st, lanes), take_lanes(m, lanes)
+    # fake_crawl where rob_mean's gate spans the threshold
+    rob32 = g[f"f32.{head}metrics.rob_mean"][:, 0].astype(float)
+    rob64 = g[f"f64.{head}metrics.rob_mean"][:, 0]
+    margin = np.abs(rob32 - cfg.apf.crawl_threshold)
+    near = margin <= (5.0 * np.abs(rob32 - rob64).max()
+                      + 1e-4 * (1.0 + np.abs(rob64).max()))
+    rounded = []
+    if near.any():
+        key = f"f32.{head}metrics.fake_crawl"
+        skip.add(key)
+        port = convert.to_numpy(m.fake_crawl)[:, 0]
+        check(np.array_equal(port[~near], g[key][~near, 0]),
+              f"{key} in the lanes away from the threshold")
+        rob = convert.to_numpy(m.rob_mean)[:, 0].astype(float)
+        rounded = [(f"c{k}", int(lane), float(rob32[lane]),
+                    float(margin[lane]), float(rob[lane]),
+                    float(rob[lane] - cfg.apf.crawl_threshold))
+                   for lane in np.flatnonzero(near)]
+    gw = golden_gate(g, head, {"state": st, "metrics": m}, skip, ticks)
+    return ((gw[0], gw[1][len("f32."):]),
+            sorted(f"c{k}.{leaf}" for leaf in flips), rounded)
+
+
 # (case, cycle) of tests/data/mode_golden.npz -> the flag and count leaves
 # that the JAX float64 run itself flips when its start's joint angles move
 # by 1e-12 rad (the golden's "f64p"); tests/test_torch_loop_modes.py holds
@@ -2629,35 +2721,10 @@ def gait_modes(dev, card):
         worst, flipped, rounded = (0.0, ""), [], []
         for k in range(n):
             st, m = sweep.step_batch(cfg, scn, st, 1)
-            head = f"{case}.c{k}."
-            flips = {key[len("f64p." + head):] for key in g
-                     if key.startswith("f64p." + head)
-                     and g[key].dtype.kind in "bi"
-                     and not np.array_equal(g[key], g["f64" + key[4:]])}
-            check(flips == TWIN_FLIPS.get((case, k), set()),
-                  f"{case} cycle {k}: the flags the JAX float64 twin flips "
-                  f"{flips}")
-            flipped += sorted(f"c{k}.{leaf}" for leaf in flips)
-            skip = {f"f32.{head}{leaf}" for leaf in flips}
-            # fake_crawl where rob_mean's gate spans the threshold
-            rob32 = g[f"f32.{head}metrics.rob_mean"][:, 0].astype(float)
-            rob64 = g[f"f64.{head}metrics.rob_mean"][:, 0]
-            margin = np.abs(rob32 - cfg.apf.crawl_threshold)
-            near = margin <= (5.0 * np.abs(rob32 - rob64).max()
-                              + 1e-4 * (1.0 + np.abs(rob64).max()))
-            if near.any():
-                key = f"f32.{head}metrics.fake_crawl"
-                skip.add(key)
-                port = convert.to_numpy(m.fake_crawl)[:, 0]
-                check(np.array_equal(port[~near], g[key][~near, 0]),
-                      f"{key} in the lanes away from the threshold")
-                rob = convert.to_numpy(m.rob_mean)[:, 0].astype(float)
-                rounded += [(f"c{k}", int(lane), float(rob32[lane]),
-                             float(margin[lane]), float(rob[lane]),
-                             float(rob[lane] - cfg.apf.crawl_threshold))
-                            for lane in np.flatnonzero(near)]
-            gw = golden_gate(g, head, {"state": st, "metrics": m}, skip)
-            worst = max(worst, (gw[0], gw[1][len("f32."):]))
+            gw, flips, near = golden_cycle(g, case, k, st, m, cfg,
+                                           TWIN_FLIPS)
+            worst, flipped, rounded = (max(worst, gw), flipped + flips,
+                                       rounded + near)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_launches()
@@ -2682,6 +2749,190 @@ def gait_modes(dev, card):
           flush=True)
 
 
+# (case, cycle) of tests/data/switch_golden.npz, world_golden.npz and
+# option_golden.npz (their case names differ) -> the flag and count leaves
+# that the JAX float64 run itself flips when its start's joint angles move
+# by 1e-12 rad; tests/test_torch_loop_switch.py, test_torch_loop_worlds.py
+# and test_torch_loop_options.py hold the CPU run to the same lists, and a
+# CPU test checks that they agree
+TWIN_FLIPS_24 = {("switch", 1): {"metrics.mpc_iters"},
+                 ("switch", 2): {"metrics.mpc_iters"},
+                 ("qd_limit", 1): {"metrics.mpc_converged",
+                                   "metrics.mpc_iters"}}
+# a lane whose JAX float64 twins end a cycle farther apart than this in q
+# (rad) is chaotic from that cycle on: a 1e-12 rad rounding has grown a
+# billionfold.  The goldens' lanes lie either below 1.5e-4 or above 0.01
+CHAOS_Q = 1e-3
+
+
+def switch_worlds_options(dev, card):
+    """Phase 24: the closed loop where phase 23's golden does not reach,
+    against the JAX package's float32 runs, cycle by cycle, with phase
+    23's rules (golden_cycle, TWIN_FLIPS_24): (a) adaptive switching one
+    lane into crawl while the other trots, and a lane leaving crawl
+    (tests/data/switch_golden.npz: B=2, 3 cycles at H=40, the lanes
+    differing in `crawling` and in their warm start's validity in cycle
+    2); (b) the `run` command's closed loop (__main__.run_closed_loop) on
+    the slope and the stairs (world_golden.npz: B=1, 2 cycles, spawned on
+    the golden's spawn with loop.init's `xy`): the cone bases and contact
+    on a height map; (c) the CLI's sweep configuration with one opt-in
+    option changed per case (option_golden.npz: B=2, 2 cycles each), the
+    plan's state rows (base_box) and acceleration rows (base_acc) in the
+    resident IPM among them.  Graphed head, tick and tail, every leaf with
+    golden_gate and phase 23's rules (golden_cycle, TWIN_FLIPS_24), a share
+    of the cycle's ticks within one tick (golden_gate's `ticks`), and a
+    lane left out from the cycle where the JAX float64 run turns chaotic
+    (`chaotic`): its float32 run is then one sample of a trajectory that
+    a rounding decides, which the CPU's float64 tests hold within the
+    twins' spread.  Per case the worst diff / gate and its leaf, the lanes
+    left out, the wall time and ms a tick, the launches of the resident
+    IPM and the SPD kernels, and the graphs captured and the bytes their
+    pools hold."""
+    import functools
+
+    import torch
+
+    from apf_quadruped_tpu_torch import __main__ as cli
+    from apf_quadruped_tpu_torch import convert
+    from apf_quadruped_tpu_torch.runtime import graph, loop, sweep
+
+    def load(name):
+        with np.load(ROOT / "tests" / "data" / f"{name}_golden.npz") as f:
+            return {k: f[k] for k in f.files}
+
+    def scenarios(g):
+        scn = convert.unflatten(g, "scn", sweep.Scenario, dev)
+        return sweep.Scenario(*(v.to(torch.float32) for v in scn))
+
+    def n_cycles(g, case):
+        return 1 + max(int(hit[1]) for hit in (
+            re.match(rf"f32\.{case}\.c(\d+)\.", key) for key in g) if hit)
+
+    def batch_cycles(cfg, scn, n, crawling=None):
+        """n step_batch calls from init_batch (its crawling flags set)."""
+        st = sweep.init_batch(cfg, scn)
+        if crawling is not None:
+            st = st._replace(crawling=crawling)
+        out = []
+        for _ in range(n):
+            st, m = sweep.step_batch(cfg, scn, st, 1)
+            out.append((st, m))
+        return out
+
+    def world_cycles(g, world, cfg, n):
+        """run_closed_loop on `world`, loop.init given the golden's spawn
+        and each cycle's LoopState recorded from loop.run_cycle."""
+        states = []
+        init, run_cycle = loop.init, loop.run_cycle
+
+        def recorded(*args):
+            out = run_cycle(*args)
+            states.append(out[0])
+            return out
+
+        loop.init = functools.partial(
+            init, xy=tuple(g[f"spawn.{world}"].tolist()))
+        loop.run_cycle = recorded
+        try:
+            st, m, terr, _ = cli.run_closed_loop(
+                cfg, world=world, target="0,1.5", cycles=n, device=dev)
+        finally:
+            loop.init, loop.run_cycle = init, run_cycle
+        check(terr.h_map is not None and states[-1] is st,
+              f"{world}: a height world through run_closed_loop")
+        return [(s, loop.CycleMetrics(*(v[:, k:k + 1] for v in m)))
+                for k, s in enumerate(states)]
+
+    def chaotic(g, case, k):
+        """The lanes whose JAX float64 twins end cycle k more than CHAOS_Q
+        apart in q, with that distance."""
+        key = f"{case}.c{k}.state.sim.q"
+        ref = g[f"f64.{key}"]
+        spread = np.max([np.abs(g[f"{t}.{key}"] - ref).max(axis=-1)
+                         for t in ("f64p", "f64m", "f64b")], axis=0)
+        return [(int(b), float(spread[b]))
+                for b in np.flatnonzero(spread > CHAOS_Q)]
+
+    def option_config(g, case):
+        (key,) = [k for k in g if k.startswith(f"case.{case}.")]
+        _, _, section, field = key.split(".")
+        cfg = sweep.cli_config()
+        return cfg.replace(**{section: dataclasses.replace(
+            getattr(cfg, section), **{field: g[key].item()})})
+
+    jobs = []       # (golden, case, cfg, run) with run() the cycles
+    g = load("switch")
+    cfg = sweep.cli_config(gait="adaptive")
+    jobs.append((g, "switch", cfg, functools.partial(
+        batch_cycles, cfg, scenarios(g), n_cycles(g, "switch"),
+        torch.as_tensor(g["init.crawling"], device=dev))))
+    g = load("world")
+    for world in ("slope", "stairs"):
+        cfg = sweep.cli_config()
+        jobs.append((g, world, cfg, functools.partial(
+            world_cycles, g, world, cfg, n_cycles(g, world))))
+    g = load("option")
+    scn = scenarios(g)
+    cases = [k.split(".")[1] for k in g if k.startswith("case.")]
+    check(len(cases) == 9, f"the option golden's cases {cases}")
+    for case in cases:
+        cfg = option_config(g, case)
+        jobs.append((g, case, cfg, functools.partial(
+            batch_cycles, cfg, scn, n_cycles(g, case))))
+
+    t_all = time.perf_counter()
+    for g, case, cfg, run in jobs:
+        graph.clear()
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cycles = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        captures = graph.entries()
+        n = len(cycles)
+        n_ticks = round(float(cycles[-1][0].sim.t[0]) / (n * cfg.sim.dt))
+        worst, flipped, rounded = (0.0, ""), [], []
+        held, left = list(range(cycles[0][0].sim.q.shape[0])), []
+        for k, (st, m) in enumerate(cycles):
+            left += [(f"c{k}", b, d) for b, d in chaotic(g, case, k)
+                     if b in held]
+            held = [b for b in held if b not in {x[1] for x in left}]
+            gw, flips, near = golden_cycle(g, case, k, st, m, cfg,
+                                           TWIN_FLIPS_24, held, n_ticks)
+            worst, flipped, rounded = (max(worst, gw), flipped + flips,
+                                       rounded + near)
+        rows = "".join(f", {name} rows" for name, on in (
+            ("state", cfg.mpc.base_box), ("accel", cfg.mpc.base_acc)) if on)
+        print(f"[switch/worlds/options] {card}: {case}, "
+              f"B={st.sim.q.shape[0]}, {n} cycles of {n_ticks} ticks in "
+              f"{wall:.1f} s "
+              f"({1e3 * wall / (n * n_ticks):.2f} ms a tick), crawling "
+              f"{[c.crawling[:, 0].tolist() for _, c in cycles]}, R22 "
+              f"{st.sim.R_wb[:, 2, 2].tolist()}; vs JAX float32 golden: "
+              f"every leaf held within its gate, worst "
+              f"{f'{worst[1]} at {worst[0]:.3f}' if worst[1] else 'none'} "
+              f"of its gate; left out (flipped by the JAX "
+              f"float64 twin): {flipped or 'none'}; fake_crawl left out "
+              f"(cycle, lane, JAX f32 rob_mean, |it - threshold|, port "
+              f"rob_mean, it - threshold): {rounded or 'none'}; lanes left "
+              f"out from the cycle the JAX float64 run turns chaotic "
+              f"(cycle, lane, its twins' distance in q): {left or 'none'}; "
+              f"launches "
+              f"{launches} (resident IPM at H={cfg.mpc.horizon}{rows}, "
+              f"{cfg.mpc.sqp_iters} a cycle; SPD kernels at n=30 and 18); "
+              f"{len(captures)} graphs captured, their pools "
+              f"{sum(e.pool_bytes for e in captures)} bytes", flush=True)
+        check(launches["resident_ipm"] == n * cfg.mpc.sqp_iters,
+              f"{case}: the resident IPM sqp_iters times a cycle")
+        check(all(v > 0 for v in launches.values()),
+              f"{case}: every kernel of the loop launched")
+    graph.clear()
+    print(f"[switch/worlds/options] phase 24 in "
+          f"{time.perf_counter() - t_all:.1f} s", flush=True)
+
+
 def main():
     import numpy as np
     import torch
@@ -2701,10 +2952,12 @@ def main():
         check=True).stdout.strip().splitlines()[0]
     alone = {("--phase", "21"): graphed_plan,
              ("--phase", "22"): wbc_latency,
-             ("--phase", "23"): gait_modes}.get(tuple(sys.argv[1:]))
+             ("--phase", "23"): gait_modes,
+             ("--phase", "24"): switch_worlds_options}.get(
+                 tuple(sys.argv[1:]))
     if sys.argv[1:] and not alone:
         raise SystemExit(f"usage: {sys.argv[0]} [--phase 21 | --phase 22 "
-                         f"| --phase 23]")
+                         f"| --phase 23 | --phase 24]")
 
     # ---- 1. device ------------------------------------------------------
     print(f"[device] python {sys.version.split()[0]}, torch "
@@ -2946,6 +3199,7 @@ def main():
     graphed_plan(dev, card)
     wbc_latency(dev, card)
     gait_modes(dev, card)
+    switch_worlds_options(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "resident_ipm", "route": "cuda",

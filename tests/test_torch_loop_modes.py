@@ -32,6 +32,7 @@ phase 23 holds the card's float32 run to the same TWIN_FLIPS.
 """
 
 import ast
+import functools
 from pathlib import Path
 
 import numpy as np
@@ -121,12 +122,32 @@ def gate_cycle(golden, case, k, st, m):
     return misses, flipped, beyond, worst
 
 
-def check_case(golden, runs, case, k):
+def check_case(golden, runs, case, k, twin_flips=TWIN_FLIPS,
+               beyond_f64p=BEYOND_F64P):
+    """Cycle k of `case` within its gates, with exactly the leaves that
+    `twin_flips` and `beyond_f64p` name for it (another golden's tests pass
+    their own lists)."""
     st, m = runs[case][k]
-    misses, flipped, beyond, _ = gate_cycle(golden, case, k, st, m)
+    misses, flipped, beyond, worst = gate_cycle(golden, case, k, st, m)
+    tree = {"state": st, "metrics": m}
+
+    def distances(leaf):
+        """max |port - JAX| and each twin's, of one leaf."""
+        prefix, *path = leaf.split(".")
+        port = convert.to_numpy(functools.reduce(getattr, path,
+                                                 tree[prefix]))
+        ref = golden[f"f64.{case}.c{k}.{leaf}"]
+        return " / ".join(f"{np.abs(v - ref).max():.3g}" for v in [port] + [
+            golden[f"{t}.{case}.c{k}.{leaf}"] for t in TWINS])
+
+    print(f"{case} cycle {k}: max|q - JAX|, port / twins "
+          f"{distances('state.sim.q')}; worst port / f64p gate "
+          f"{worst[0]:.3g} ({worst[1]})")
+    for leaf in sorted(beyond):
+        print(f"  beyond: {leaf}, port / twins {distances(leaf)}")
     assert not misses, f"{case} cycle {k}:\n" + "\n".join(misses)
-    assert flipped == TWIN_FLIPS.get((case, k), set()), flipped
-    assert beyond == BEYOND_F64P.get((case, k), set()), beyond
+    assert flipped == twin_flips.get((case, k), set()), flipped
+    assert beyond == beyond_f64p.get((case, k), set()), beyond
 
 
 @pytest.fixture(scope="module")
