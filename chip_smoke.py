@@ -130,7 +130,7 @@ Phases; each raises on failure, so any failure exits non-zero:
      the WBC latency benchmark's states (problems.wbc_problem, seed 0,
      EngineConfig(), SolverConfig(), float32), a NaN lane, the launch
      counters; the WBC tick latency p50/p99/mean a call, graphed and
-     eager in turns (600 graphed and 300 eager calls at B=1, 200 and 100
+     eager in turns (600 graphed and 150 eager calls at B=1, 200 and 50
      at the others), with the host's enqueue time, the graph's device
      time, capture and pool,
      and the B=1 p99 against the reference's 2.5 ms budget (400 Hz); the
@@ -158,9 +158,13 @@ Phases; each raises on failure, so any failure exits non-zero:
      (world_golden.npz, B=1, 2 cycles) and the CLI's sweep configuration
      with one opt-in option changed per case (option_golden.npz: qd_limit,
      foothold off, min_exit, rep_field_in_step, base_box, base_acc,
-     sqp_iters 2, ref_exact, early touch-down off; B=2, 2 cycles); per
-     case the worst diff / gate, the wall time, the launch counts and the
-     graphs captured with their pools.
+     sqp_iters 2, ref_exact, early touch-down off; B=2, 2 cycles); for
+     the left-out lanes, 20-tick cycles graphed against eager bit for bit
+     from their heads (every head of the switch), and the switch's crawl
+     decisions and warm flags against JAX float32's where no rounding
+     decides them (held_decisions); per case the worst diff / gate, the
+     wall time, the launch counts and the graphs captured with their
+     pools.
 The eager sides of phases 10, 20 and 21 swap in the eager bodies:
 `eager_ticks` the tick's, `eager_plans` the plan's, the head's and the
 tail's, and both those of wbc.solve and solve_qp (`eager_wbc`).
@@ -1813,6 +1817,14 @@ def replay_ms(fn, reps=50):
     return event_ms(g.replay, reps)
 
 
+def short_cycles(cfg, **gait):
+    """cfg with every gait's cycle cut to 0.05 s (20 ticks), for the
+    eager sides of phases 20 and 24, and `gait`'s fields set."""
+    return cfg.replace(gait=dataclasses.replace(
+        cfg.gait, trot_cycle=0.05, crawl_cycle=0.05, fixed_cycle=0.05,
+        **gait))
+
+
 def graphed_tick(dev, card, main_path):
     """Phase 20: the closed loop's tick replayed from a captured CUDA graph
     (runtime/graph.py), against the eager tick (loop._scan_ticks_eager)
@@ -1837,11 +1849,6 @@ def graphed_tick(dev, card, main_path):
     from apf_quadruped_tpu_torch.runtime import graph, loop, sweep
     from apf_quadruped_tpu_torch.sim import disturbance, physics, terrain
 
-    def short(cfg, **gait):
-        return cfg.replace(gait=dataclasses.replace(
-            cfg.gait, trot_cycle=0.05, crawl_cycle=0.05, fixed_cycle=0.05,
-            **gait))
-
     def leaves(tree):
         if isinstance(tree, torch.Tensor):
             return [tree]
@@ -1857,7 +1864,8 @@ def graphed_tick(dev, card, main_path):
 
     def case(name, seed=0):
         mode = name if name in ("crawl", "pace", "adaptive") else "trot"
-        cfg = short(sweep.cli_config(gait=mode), early_td=name != "trot")
+        cfg = short_cycles(sweep.cli_config(gait=mode),
+                           early_td=name != "trot")
         scn = sweep.random_scenarios(cfg, B, seed=seed, device=dev)
         terr = (terrain.block(cfg.sim, batch=(B,), device=dev)
                 if name == "height" else sweep._terrain(cfg, scn))
@@ -1888,7 +1896,7 @@ def graphed_tick(dev, card, main_path):
     same["other scenarios through the cached graph"] = (
         {id(e) for e in graph.entries()} == cached
         and bitwise(second, eager_second) and bitwise(first, kept))
-    cfg = short(sweep.cli_config())
+    cfg = short_cycles(sweep.cli_config())
     scn = sweep.random_scenarios(cfg, B, seed=2, device=dev)
     m2 = mesh_mod.scenario_mesh(["cuda:0", "cuda:0"])
 
@@ -1994,7 +2002,7 @@ def graphed_tick(dev, card, main_path):
         check(bool(torch.isfinite(met.com).all()), f"B={Bn} finite")
 
         # in turns: 20-tick cycles, eager, graphed, graphed, eager
-        c20 = short(cfg)
+        c20 = short_cycles(cfg)
         st0 = sweep.init_batch(c20, scn)
 
         def cycle20():
@@ -2409,7 +2417,7 @@ def wbc_latency(dev, card):
     through the cached graph, and the launch counters against an eager
     call's; (b) the wall latency of a call, each fenced by
     torch.cuda.synchronize(), graphed and eager in turns (600 graphed and
-    300 eager calls at B=1, 200 and 100 at B=64, 128, 1024), with the
+    150 eager calls at B=1, 200 and 50 at B=64, 128, 1024), with the
     host's enqueue time, the graph's device time by CUDA events, its
     capture and pool; (c) the
     marginal cost of a solve in a tick scan: graph.scan of K solves at B=1
@@ -2507,10 +2515,11 @@ def wbc_latency(dev, card):
                "graphed": lambda: wbc.solve(cfg, st, ref)}
         lat = {"eager": [], "graphed": []}
         enqueue = {"eager": [], "graphed": []}
-        # the eager side's blocks are half the graphed side's: it takes
-        # 60-80 ms a call, and the graphed p99 is what the phase reports
+        # the eager side's blocks are a quarter of the graphed side's: it
+        # takes 60-120 ms a call, and the graphed p99 is what the phase
+        # reports
         rounds = 3 if B == 1 else 1
-        block = {"eager": 50, "graphed": 100}
+        block = {"eager": 25, "graphed": 100}
         for _ in range(rounds):
             for label in ("eager", "graphed", "graphed", "eager"):
                 for _ in range(block[label]):
@@ -2763,139 +2772,228 @@ TWIN_FLIPS_24 = {("switch", 1): {"metrics.mpc_iters"},
 # (rad) is chaotic from that cycle on: a 1e-12 rad rounding has grown a
 # billionfold.  The goldens' lanes lie either below 1.5e-4 or above 0.01
 CHAOS_Q = 1e-3
+# the least distance from its threshold of the rob_mean that decides a
+# gait decision the card is held to in a chaotic lane
+# (tests/data/make_switch_golden.py's MARGIN)
+DECISION_MARGIN = 0.01
+
+
+def option_config(g, case):
+    """sweep.cli_config() with the one field that option_golden.npz names
+    for `case` ("case.<case>.<section>.<field>", its value) changed."""
+    from apf_quadruped_tpu_torch.runtime import sweep
+
+    (key,) = [k for k in g if k.startswith(f"case.{case}.")]
+    _, _, section, field = key.split(".")
+    cfg = sweep.cli_config()
+    return cfg.replace(**{section: dataclasses.replace(
+        getattr(cfg, section), **{field: g[key].item()})})
+
+
+def option_scenarios(g, case, device, dtype):
+    """The scenarios option_golden.npz ran `case` on: the case's own
+    ("scn_<case>.<field>") where it has them, else the shared ("scn.")."""
+    from apf_quadruped_tpu_torch import convert
+    from apf_quadruped_tpu_torch.runtime import sweep
+
+    prefix = f"scn_{case}" if f"scn_{case}.target_xy" in g else "scn"
+    scn = convert.unflatten(g, prefix, sweep.Scenario, device)
+    return sweep.Scenario(*(v.to(dtype) for v in scn))
+
+
+def batch_cycles(cfg, scn, n, crawling=None):
+    """n cycles of sweep.step_batch from sweep.init_batch (its crawling
+    flags set to `crawling` if given): ([(LoopState before the cycle,
+    after it, CycleMetrics)], one_cycle(cfg, st) -> a cycle from st)."""
+    from apf_quadruped_tpu_torch.runtime import sweep
+
+    def one_cycle(cfg, st):
+        return sweep.step_batch(cfg, scn, st, 1)
+
+    st = sweep.init_batch(cfg, scn)
+    if crawling is not None:
+        st = st._replace(crawling=crawling)
+    out = []
+    for _ in range(n):
+        st2, m = one_cycle(cfg, st)
+        out.append((st, st2, m))
+        st = st2
+    return out, one_cycle
+
+
+def world_cycles(spawn, world, cfg, n, device, dtype=None):
+    """The `run` command's closed loop (__main__.run_closed_loop) on the
+    height world `world` for n cycles, loop.init given `spawn` as its `xy`
+    and each cycle recorded from loop.run_cycle: ([(LoopState before the
+    cycle, after it, CycleMetrics (1, 1, ...))], one_cycle(cfg, st) -> a
+    cycle of that loop from st)."""
+    from apf_quadruped_tpu_torch import __main__ as cli
+    from apf_quadruped_tpu_torch.runtime import loop
+
+    calls = []
+    init, run_cycle = loop.init, loop.run_cycle
+
+    def recorded(*args):
+        out = run_cycle(*args)
+        calls.append((args, out[0]))
+        return out
+
+    loop.init = lambda *a, **kw: init(*a, xy=tuple(spawn), **kw)
+    loop.run_cycle = recorded
+    try:
+        st, m, terr, _ = cli.run_closed_loop(
+            cfg, world=world, target="0,1.5", cycles=n, dtype=dtype,
+            device=device)
+    finally:
+        loop.init, loop.run_cycle = init, run_cycle
+    check(terr.h_map is not None and len(calls) == n and calls[-1][1] is st,
+          f"{world}: a height world through run_closed_loop")
+    inputs = calls[0][0][2:]      # the terrain, target and pushes
+
+    def one_cycle(cfg, st):
+        return loop.run_cycle(cfg, st, *inputs)
+
+    return [(args[1], st2, loop.CycleMetrics(*(v[:, k:k + 1] for v in m)))
+            for k, (args, st2) in enumerate(calls)], one_cycle
+
+
+def held_decisions(g, case):
+    """(cycle, lane) of an adaptive golden's gait decisions that no
+    rounding decides: crawling at cycle k's head is the same in the JAX
+    float64 run, its three twins and the float32 run, after the same
+    decision at the head before, and the float32 run's rob_mean lies
+    DECISION_MARGIN or more from the threshold that held it
+    (ApfConfig.crawl_exit_threshold in a lane that was crawling, else
+    crawl_enter_threshold).  The card's crawl decision and warm flag are
+    held to JAX float32's there, in a chaotic lane too."""
+    from apf_quadruped_tpu_torch.config import ApfConfig
+
+    runs = ("f64", "f64p", "f64m", "f64b", "f32")
+    apf = ApfConfig()
+    before = {r: g["init.crawling"] for r in runs}
+    held, k = [], 0
+    while f"f32.{case}.c{k}.metrics.crawling" in g:
+        now = {r: g[f"{r}.{case}.c{k}.metrics.crawling"][:, 0] for r in runs}
+        rob = g[f"f32.{case}.c{k}.metrics.rob_mean"][:, 0].astype(float)
+        thr = np.where(before["f32"], apf.crawl_exit_threshold,
+                       apf.crawl_enter_threshold)
+        for b in range(len(rob)):
+            if (len({(bool(before[r][b]), bool(now[r][b]))
+                     for r in runs}) == 1
+                    and abs(rob[b] - thr[b]) >= DECISION_MARGIN):
+                held.append((k, b))
+        before, k = now, k + 1
+    return held
+
+
+def chaotic(g, case, k):
+    """The lanes whose JAX float64 twins end cycle k of `case` more than
+    CHAOS_Q apart in q, with that distance."""
+    key = f"{case}.c{k}.state.sim.q"
+    ref = g[f"f64.{key}"]
+    spread = np.max([np.abs(g[f"{t}.{key}"] - ref).max(axis=-1)
+                     for t in ("f64p", "f64m", "f64b")], axis=0)
+    return [(int(b), float(spread[b]))
+            for b in np.flatnonzero(spread > CHAOS_Q)]
+
+
+def graphed_is_eager(one_cycle, cfg, st):
+    """One 20-tick cycle (short_cycles) of `one_cycle` from LoopState st,
+    graphed (head, plan, ticks, WBC solves and tail) and then eager
+    (eager_plans and eager_ticks): whether every output leaf is equal
+    bit for bit."""
+    cfg = short_cycles(cfg)
+    graphed = one_cycle(cfg, st)
+    with eager_plans(), eager_ticks():
+        eager = one_cycle(cfg, st)
+    return same_bits(graphed, eager)
 
 
 def switch_worlds_options(dev, card):
     """Phase 24: the closed loop where phase 23's golden does not reach,
-    against the JAX package's float32 runs, cycle by cycle, with phase
-    23's rules (golden_cycle, TWIN_FLIPS_24): (a) adaptive switching one
-    lane into crawl while the other trots, and a lane leaving crawl
-    (tests/data/switch_golden.npz: B=2, 3 cycles at H=40, the lanes
-    differing in `crawling` and in their warm start's validity in cycle
-    2); (b) the `run` command's closed loop (__main__.run_closed_loop) on
-    the slope and the stairs (world_golden.npz: B=1, 2 cycles, spawned on
-    the golden's spawn with loop.init's `xy`): the cone bases and contact
-    on a height map; (c) the CLI's sweep configuration with one opt-in
-    option changed per case (option_golden.npz: B=2, 2 cycles each), the
-    plan's state rows (base_box) and acceleration rows (base_acc) in the
-    resident IPM among them.  Graphed head, tick and tail, every leaf with
-    golden_gate and phase 23's rules (golden_cycle, TWIN_FLIPS_24), a share
-    of the cycle's ticks within one tick (golden_gate's `ticks`), and a
-    lane left out from the cycle where the JAX float64 run turns chaotic
-    (`chaotic`): its float32 run is then one sample of a trajectory that
-    a rounding decides, which the CPU's float64 tests hold within the
-    twins' spread.  Per case the worst diff / gate and its leaf, the lanes
-    left out, the wall time and ms a tick, the launches of the resident
+    against the JAX package's float32 runs, cycle by cycle: (a) adaptive
+    switching one lane into crawl while the other trots, and a lane
+    leaving crawl (tests/data/switch_golden.npz: B=2, 3 cycles at H=40,
+    the lanes differing in `crawling` and in their warm start's validity
+    in cycle 2); (b) the `run` command's closed loop
+    (__main__.run_closed_loop) on the slope and the stairs
+    (world_golden.npz: B=1, 2 cycles, spawned on the golden's spawn with
+    loop.init's `xy`): the cone bases and contact on a height map; (c) the
+    CLI's sweep configuration with one opt-in option changed per case
+    (option_golden.npz: B=2, 2 cycles each), the plan's state rows
+    (base_box) and acceleration rows (base_acc) in the resident IPM among
+    them.  Graphed head, tick and tail, every leaf with golden_gate and
+    phase 23's rules (golden_cycle, TWIN_FLIPS_24), and two more: a share
+    of the cycle's ticks may move by one tick (golden_gate's `ticks`), and
+    a lane is left out from the cycle where its JAX float64 twins turn
+    chaotic (CHAOS_Q): its float32 run is then one sample of a trajectory
+    that a rounding decides.  Two witnesses that chaos cannot break stand
+    in for what those lanes leave out: from each left-out cycle's head
+    (and from every head of the switch), one 20-tick cycle graphed
+    against eager, bit for bit; and the switch's crawl decisions and warm
+    flags against JAX float32's wherever no rounding decides them
+    (held_decisions), with a cycle whose lanes differ in `crawling` and
+    in the validity of their warm start among the witnessed heads.  Per
+    case the worst diff / gate and its leaf, the lanes left out, the
+    witnesses, the wall time and ms a tick, the launches of the resident
     IPM and the SPD kernels, and the graphs captured and the bytes their
     pools hold."""
     import functools
 
     import torch
 
-    from apf_quadruped_tpu_torch import __main__ as cli
-    from apf_quadruped_tpu_torch import convert
+    from apf_quadruped_tpu_torch import apf, convert
     from apf_quadruped_tpu_torch.runtime import graph, loop, sweep
 
     def load(name):
         with np.load(ROOT / "tests" / "data" / f"{name}_golden.npz") as f:
             return {k: f[k] for k in f.files}
 
-    def scenarios(g):
-        scn = convert.unflatten(g, "scn", sweep.Scenario, dev)
-        return sweep.Scenario(*(v.to(torch.float32) for v in scn))
-
     def n_cycles(g, case):
         return 1 + max(int(hit[1]) for hit in (
             re.match(rf"f32\.{case}\.c(\d+)\.", key) for key in g) if hit)
 
-    def batch_cycles(cfg, scn, n, crawling=None):
-        """n step_batch calls from init_batch (its crawling flags set)."""
-        st = sweep.init_batch(cfg, scn)
-        if crawling is not None:
-            st = st._replace(crawling=crawling)
-        out = []
-        for _ in range(n):
-            st, m = sweep.step_batch(cfg, scn, st, 1)
-            out.append((st, m))
-        return out
-
-    def world_cycles(g, world, cfg, n):
-        """run_closed_loop on `world`, loop.init given the golden's spawn
-        and each cycle's LoopState recorded from loop.run_cycle."""
-        states = []
-        init, run_cycle = loop.init, loop.run_cycle
-
-        def recorded(*args):
-            out = run_cycle(*args)
-            states.append(out[0])
-            return out
-
-        loop.init = functools.partial(
-            init, xy=tuple(g[f"spawn.{world}"].tolist()))
-        loop.run_cycle = recorded
-        try:
-            st, m, terr, _ = cli.run_closed_loop(
-                cfg, world=world, target="0,1.5", cycles=n, device=dev)
-        finally:
-            loop.init, loop.run_cycle = init, run_cycle
-        check(terr.h_map is not None and states[-1] is st,
-              f"{world}: a height world through run_closed_loop")
-        return [(s, loop.CycleMetrics(*(v[:, k:k + 1] for v in m)))
-                for k, s in enumerate(states)]
-
-    def chaotic(g, case, k):
-        """The lanes whose JAX float64 twins end cycle k more than CHAOS_Q
-        apart in q, with that distance."""
-        key = f"{case}.c{k}.state.sim.q"
-        ref = g[f"f64.{key}"]
-        spread = np.max([np.abs(g[f"{t}.{key}"] - ref).max(axis=-1)
-                         for t in ("f64p", "f64m", "f64b")], axis=0)
-        return [(int(b), float(spread[b]))
-                for b in np.flatnonzero(spread > CHAOS_Q)]
-
-    def option_config(g, case):
-        (key,) = [k for k in g if k.startswith(f"case.{case}.")]
-        _, _, section, field = key.split(".")
-        cfg = sweep.cli_config()
-        return cfg.replace(**{section: dataclasses.replace(
-            getattr(cfg, section), **{field: g[key].item()})})
-
-    jobs = []       # (golden, case, cfg, run) with run() the cycles
+    jobs = []       # (golden, case, cfg, run) with run() batch_cycles'
     g = load("switch")
     cfg = sweep.cli_config(gait="adaptive")
+    scn = convert.unflatten(g, "scn", sweep.Scenario, dev)
     jobs.append((g, "switch", cfg, functools.partial(
-        batch_cycles, cfg, scenarios(g), n_cycles(g, "switch"),
+        batch_cycles, cfg, sweep.Scenario(*(v.to(torch.float32)
+                                            for v in scn)),
+        n_cycles(g, "switch"),
         torch.as_tensor(g["init.crawling"], device=dev))))
     g = load("world")
     for world in ("slope", "stairs"):
         cfg = sweep.cli_config()
         jobs.append((g, world, cfg, functools.partial(
-            world_cycles, g, world, cfg, n_cycles(g, world))))
+            world_cycles, g[f"spawn.{world}"].tolist(), world, cfg,
+            n_cycles(g, world), dev)))
     g = load("option")
-    scn = scenarios(g)
     cases = [k.split(".")[1] for k in g if k.startswith("case.")]
     check(len(cases) == 9, f"the option golden's cases {cases}")
     for case in cases:
         cfg = option_config(g, case)
         jobs.append((g, case, cfg, functools.partial(
-            batch_cycles, cfg, scn, n_cycles(g, case))))
+            batch_cycles, cfg, option_scenarios(g, case, dev, torch.float32),
+            n_cycles(g, case))))
 
     t_all = time.perf_counter()
+    mixed = False
     for g, case, cfg, run in jobs:
         graph.clear()
         zero_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        cycles = run()
+        cycles, one_cycle = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_launches()
         captures = graph.entries()
         n = len(cycles)
-        n_ticks = round(float(cycles[-1][0].sim.t[0]) / (n * cfg.sim.dt))
+        n_ticks = round(float(cycles[-1][1].sim.t[0]) / (n * cfg.sim.dt))
         worst, flipped, rounded = (0.0, ""), [], []
-        held, left = list(range(cycles[0][0].sim.q.shape[0])), []
-        for k, (st, m) in enumerate(cycles):
+        held, left = list(range(cycles[0][1].sim.q.shape[0])), []
+        for k, (_, st, m) in enumerate(cycles):
             left += [(f"c{k}", b, d) for b, d in chaotic(g, case, k)
                      if b in held]
             held = [b for b in held if b not in {x[1] for x in left}]
@@ -2903,15 +3001,40 @@ def switch_worlds_options(dev, card):
                                            TWIN_FLIPS_24, held, n_ticks)
             worst, flipped, rounded = (max(worst, gw), flipped + flips,
                                        rounded + near)
+        # the witnesses: graphed against eager from the left-out heads
+        t1 = time.perf_counter()
+        first = min([int(c[1:]) for c, _, _ in left], default=n)
+        witnessed = range(0 if case == "switch" else first, n)
+        same = {}
+        for k in witnessed:
+            st = cycles[k][0]
+            same[f"c{k}"] = graphed_is_eager(one_cycle, cfg, st)
+            flag, crawling, _ = loop._gait_schedule(
+                cfg, st, apf.update_robustness(cfg.apf, st.apf))
+            valid = st.warm_valid & (st.warm_flag == flag)
+            mixed |= bool(crawling.any() and not crawling.all()
+                          and valid.any() and not valid.all())
+        check(all(same.values()), f"{case}: the left-out heads' 20-tick "
+              f"cycles graphed against eager, bit for bit: {same}")
+        decisions = held_decisions(g, case) if case == "switch" else []
+        for k, b in decisions:
+            st, m = cycles[k][1], cycles[k][2]
+            for leaf, port in (("metrics.crawling", m.crawling[b, 0]),
+                               ("state.crawling", st.crawling[b]),
+                               ("state.warm_flag", st.warm_flag[b])):
+                ref = np.ravel(g[f"f32.{case}.c{k}.{leaf}"][b])[0]
+                check(np.array_equal(convert.to_numpy(port), ref),
+                      f"{case} cycle {k} lane {b}: {leaf} against JAX "
+                      f"float32's")
         rows = "".join(f", {name} rows" for name, on in (
             ("state", cfg.mpc.base_box), ("accel", cfg.mpc.base_acc)) if on)
         print(f"[switch/worlds/options] {card}: {case}, "
               f"B={st.sim.q.shape[0]}, {n} cycles of {n_ticks} ticks in "
               f"{wall:.1f} s "
               f"({1e3 * wall / (n * n_ticks):.2f} ms a tick), crawling "
-              f"{[c.crawling[:, 0].tolist() for _, c in cycles]}, R22 "
-              f"{st.sim.R_wb[:, 2, 2].tolist()}; vs JAX float32 golden: "
-              f"every leaf held within its gate, worst "
+              f"{[c.crawling[:, 0].tolist() for _, _, c in cycles]}, R22 "
+              f"{cycles[-1][1].sim.R_wb[:, 2, 2].tolist()}; vs JAX float32 "
+              f"golden: every leaf held within its gate, worst "
               f"{f'{worst[1]} at {worst[0]:.3f}' if worst[1] else 'none'} "
               f"of its gate; left out (flipped by the JAX "
               f"float64 twin): {flipped or 'none'}; fake_crawl left out "
@@ -2919,7 +3042,11 @@ def switch_worlds_options(dev, card):
               f"rob_mean, it - threshold): {rounded or 'none'}; lanes left "
               f"out from the cycle the JAX float64 run turns chaotic "
               f"(cycle, lane, its twins' distance in q): {left or 'none'}; "
-              f"launches "
+              f"witnesses: 20-tick cycles from the heads "
+              f"{list(same) or 'none'} graphed against eager, bit for bit "
+              f"({time.perf_counter() - t1:.1f} s), gait decisions and warm "
+              f"flags equal to JAX float32's at (cycle, lane) "
+              f"{decisions or 'none'}; launches "
               f"{launches} (resident IPM at H={cfg.mpc.horizon}{rows}, "
               f"{cfg.mpc.sqp_iters} a cycle; SPD kernels at n=30 and 18); "
               f"{len(captures)} graphs captured, their pools "
@@ -2928,6 +3055,11 @@ def switch_worlds_options(dev, card):
               f"{case}: the resident IPM sqp_iters times a cycle")
         check(all(v > 0 for v in launches.values()),
               f"{case}: every kernel of the loop launched")
+        if case == "switch":
+            check(len(decisions) == 2 * n, f"switch: every gait decision "
+                  f"held, {decisions}")
+    check(mixed, "a witnessed head whose lanes differ in crawling and in "
+          "the validity of their warm start")
     graph.clear()
     print(f"[switch/worlds/options] phase 24 in "
           f"{time.perf_counter() - t_all:.1f} s", flush=True)
@@ -2945,6 +3077,7 @@ def main():
                                                 SolverConfig)
     from apf_quadruped_tpu_torch.ops import cuda_riccati, riccati
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3190,16 +3323,26 @@ def main():
           f"fused passes {fused_ms / n_it:.4f} ms ({fused_ms:.3f} ms of "
           f"device time a fused plan)", flush=True)
 
-    resumable_sweep(card, main_path)
-    zoo_robots(dev, card)
-    long_horizon(dev, card)
-    sharded_sweeps(dev, card)
-    bf16 = stage_bf16(dev, card, x0, refs, x1, refs1)
-    graphed_tick(dev, card, main_path)
-    graphed_plan(dev, card)
-    wbc_latency(dev, card)
-    gait_modes(dev, card)
-    switch_worlds_options(dev, card)
+    def phase(n, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        now = time.perf_counter()
+        print(f"[phases] phase {n} ({fn.__name__}) in {now - t:.1f} s, "
+              f"{now - t_start:.1f} s since the start", flush=True)
+        return out
+
+    print(f"[phases] phases 1-14 in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    phase(15, resumable_sweep, card, main_path)
+    phase(16, zoo_robots, dev, card)
+    phase(17, long_horizon, dev, card)
+    phase(18, sharded_sweeps, dev, card)
+    bf16 = phase(19, stage_bf16, dev, card, x0, refs, x1, refs1)
+    phase(20, graphed_tick, dev, card, main_path)
+    phase(21, graphed_plan, dev, card)
+    phase(22, wbc_latency, dev, card)
+    phase(23, gait_modes, dev, card)
+    phase(24, switch_worlds_options, dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "resident_ipm", "route": "cuda",

@@ -1,6 +1,6 @@
 """What the closed-loop golden generators share (make_switch_golden.py,
 make_world_golden.py, make_option_golden.py): the float64 twins, the flat
-key names of a NamedTuple tree, and the driver that writes a golden from a
+key names of a NamedTuple tree, and main(), which writes a golden from a
 float64 and a float32 process of the JAX package on the CPU.
 
 Each generator defines `run(dtype_name, path)`, which writes the runs of
@@ -76,7 +76,8 @@ def save(path, data, dtype_name):
 def main(out: Path, script: str, run, check=None):
     """`script f64|f32 <path>` writes one dtype's runs; with no arguments
     both processes run side by side and their runs are merged into `out`
-    (the float32 process's "scn." keys must be the float64 ones, rounded),
+    (the float32 process's scenario keys, "scn.*" and "scn_*", must be the
+    float64 ones, rounded),
     after `check(data)` if given."""
     if len(sys.argv) == 3:
         run(sys.argv[1], sys.argv[2])
@@ -94,7 +95,7 @@ def main(out: Path, script: str, run, check=None):
             with np.load(part) as f:
                 part_data = {k: f[k] for k in f.files}
             if name == "f32":
-                for k in [k for k in part_data if k.startswith("scn.")]:
+                for k in [k for k in part_data if k.startswith("scn")]:
                     np.testing.assert_array_equal(
                         part_data.pop(k), data[k].astype(np.float32),
                         err_msg=k)

@@ -6,11 +6,12 @@ options here (wbc.qd_limit, wbc.ref_exact, gait.early_td off);
 tests/test_torch_loop_options_plan.py runs the plan's (mpc.base_box,
 mpc.base_acc, mpc.sqp_iters 2) and tests/test_torch_loop_options_nav.py
 the navigation's (foothold.enabled off, apf.min_exit,
-apf.rep_field_in_step), three a file, each ~45 s.
+apf.rep_field_in_step), three a file.
 
 Each case is the CLI's sweep configuration with exactly the one field the
 golden names changed ("case.<case>.<section>.<field>"), B=2 scenarios
-from random_scenarios(seed=0, use_native=False), 2 cycles through
+from random_scenarios(seed=0, use_native=False) (foothold_off: its own,
+"scn_foothold_off.<field>"), 2 cycles through
 sweep.init_batch / step_batch: the second runs trot pair B from the
 first's leg-permuted warm start.
 """
@@ -24,6 +25,7 @@ import torch
 
 from apf_quadruped_tpu_torch import convert
 from apf_quadruped_tpu_torch.runtime import sweep
+from chip_smoke import batch_cycles, option_config, option_scenarios
 from test_torch_loop_modes import check_case
 
 torch.set_num_threads(1)
@@ -44,29 +46,15 @@ def load_golden():
         return {k: f[k] for k in f.files}
 
 
-def case_config(golden, case):
-    """sweep.cli_config() with the one field the golden names for `case`
-    changed."""
-    (key,) = [k for k in golden if k.startswith(f"case.{case}.")]
-    _, _, section, field = key.split(".")
-    cfg = sweep.cli_config()
-    sub = getattr(cfg, section)
-    return cfg.replace(**{section: dataclasses.replace(
-        sub, **{field: golden[key].item()})})
-
-
 def port_cycles(golden, case):
     """[(LoopState, CycleMetrics)] after each cycle of the port's float64
-    run of `case`, one step_batch call a cycle as the golden was
-    written."""
-    cfg = case_config(golden, case)
-    scn = convert.unflatten(golden, "scn", sweep.Scenario)
-    st = sweep.init_batch(cfg, scn)
-    out = []
-    for _ in range(CYCLES):
-        st, m = sweep.step_batch(cfg, scn, st, 1)
-        out.append((st, m))
-    return out
+    run of `case` on the case's scenarios, one step_batch call a cycle as
+    the golden was written (chip_smoke.batch_cycles, which phase 24 runs
+    on the card)."""
+    cycles, _ = batch_cycles(
+        option_config(golden, case),
+        option_scenarios(golden, case, "cpu", torch.float64), CYCLES)
+    return [(st, m) for _, st, m in cycles]
 
 
 def check(golden, runs, case, k):
@@ -86,21 +74,27 @@ def runs(golden):
 
 def test_golden_holds_each_option_alone(golden):
     """The golden's cases are the nine options, each one field away from
-    the CLI's sweep configuration, on the CLI's scenarios."""
+    the CLI's sweep configuration, on the CLI's scenarios
+    (random_scenarios(n=2, seed=0)) but foothold_off, which runs on lanes
+    0 and 1 of random_scenarios(n=16, seed=1)."""
     assert sorted(k.split(".")[1] for k in golden
                   if k.startswith("case.")) == sorted(CASES)
     base = dataclasses.asdict(sweep.cli_config())
     for case in CASES:
-        cfg = dataclasses.asdict(case_config(golden, case))
+        cfg = dataclasses.asdict(option_config(golden, case))
         changed = [(s, f) for s in base for f in base[s]
                    if base[s][f] != cfg[s][f]]
         assert len(changed) == 1, (case, changed)
-    scn = sweep.random_scenarios(sweep.cli_config(), 2, seed=0,
-                                 dtype=torch.float64, use_native=False,
-                                 device="cpu")
-    for name, v in scn._asdict().items():
-        np.testing.assert_array_equal(convert.to_numpy(v),
-                                      golden[f"scn.{name}"], err_msg=name)
+    for case, n, seed in (("qd_limit", 2, 0), ("foothold_off", 16, 1)):
+        scn = sweep.random_scenarios(sweep.cli_config(), n, seed=seed,
+                                     dtype=torch.float64, use_native=False,
+                                     device="cpu")
+        ours = option_scenarios(golden, case, "cpu", torch.float64)
+        for name, v in scn._asdict().items():
+            np.testing.assert_array_equal(convert.to_numpy(v)[:2],
+                                          convert.to_numpy(getattr(ours,
+                                                                   name)),
+                                          err_msg=(case, name))
 
 
 def test_wbc_velocity_rows_match_jax(rng):

@@ -22,8 +22,10 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from apf_quadruped_tpu_torch import apf, convert
 from apf_quadruped_tpu_torch.runtime import loop, sweep
+from chip_smoke import batch_cycles
 from test_torch_loop_modes import check_case
 
 torch.set_num_threads(1)
@@ -45,17 +47,13 @@ def golden():
 
 def port_cycles(golden):
     """[the LoopState before the cycle, after it, the CycleMetrics] of each
-    cycle of the port's float64 run, one step_batch call a cycle."""
-    cfg = sweep.cli_config(gait="adaptive")
-    scn = convert.unflatten(golden, "scn", sweep.Scenario)
-    st = sweep.init_batch(cfg, scn)
-    st = st._replace(crawling=torch.as_tensor(golden["init.crawling"]))
-    out = []
-    for _ in range(CYCLES):
-        st2, m = sweep.step_batch(cfg, scn, st, 1)
-        out.append((st, st2, m))
-        st = st2
-    return out
+    cycle of the port's float64 run, one step_batch call a cycle
+    (chip_smoke.batch_cycles, which phase 24 runs on the card)."""
+    cycles, _ = batch_cycles(
+        sweep.cli_config(gait="adaptive"),
+        convert.unflatten(golden, "scn", sweep.Scenario), CYCLES,
+        torch.as_tensor(golden["init.crawling"]))
+    return cycles
 
 
 @pytest.fixture(scope="module")
@@ -129,3 +127,18 @@ def test_chip_smoke_holds_the_same_twin_flips():
              == ["TWIN_FLIPS_24"]]
     assert found == [{**TWIN_FLIPS, **test_torch_loop_worlds.TWIN_FLIPS,
                       **test_torch_loop_options.TWIN_FLIPS}]
+
+
+def test_chip_smoke_holds_every_gait_decision(golden):
+    """chip_smoke.py phase 24 holds the card's crawl decision and warm flag
+    to JAX float32's in every cycle and lane of the golden, the chaotic
+    lanes too (held_decisions), at make_switch_golden.py's margin."""
+    tree = ast.parse((Path(__file__).resolve().parent / "data"
+                      / "make_switch_golden.py").read_text())
+    margin = [ast.literal_eval(node.value) for node in tree.body
+              if isinstance(node, ast.Assign)
+              and [getattr(t, "id", None) for t in node.targets]
+              == ["MARGIN"]]
+    assert margin == [chip_smoke.DECISION_MARGIN]
+    assert chip_smoke.held_decisions(golden, CASE) == [
+        (k, b) for k in range(CYCLES) for b in range(2)]
