@@ -148,6 +148,17 @@ def fused_riccati_limits() -> tuple[int, int, int, int]:
     return tuple(v.value for v in vals)
 
 
+@functools.cache
+def apf_mark() -> ctypes.CDLL:
+    """The stage marks' library (csrc/apf_mark.cu: one empty kernel a
+    stage), built and loaded once per process, at the first use of
+    runtime/profiling.py's marks."""
+    lib = ctypes.CDLL(str(build("apf_mark", [CSRC / "apf_mark.cu"])))
+    lib.apf_mark_launch.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.apf_mark_launch.restype = ctypes.c_int
+    return lib
+
+
 # the names of resident_ipm_layout's values, in its order
 _IPM_LAYOUT = ("NX", "NU", "M_MAX", "MC_MAX", "IN_REC", "IN_A", "IN_BT",
                "IN_Q", "IN_MASK", "IN_H", "IN_CX", "IN_MX", "ST_REC", "ST_U",

@@ -43,7 +43,7 @@ from .models import srb
 from .ops.cuda_riccati import solve_stage_qp_fused, solve_stage_qp_resident
 from .ops.qpsolve import QPData, QPSolution, _solve_qp_eager
 from .ops.riccati import StageQP, WarmStart, solve_stage_qp
-from .runtime import graph
+from .runtime import graph, profiling
 
 ROWS_PER_FOOT = 6   # fz<=fmax, -fz<=-fmin, +-fx-mu fz<=0, +-fy-mu fz<=0
 
@@ -304,6 +304,10 @@ def stage_qp(cfg: EngineConfig, state0, refs: MpcRefs, A=None,
 
 def _plan_riccati(cfg: EngineConfig, state0, refs: MpcRefs, backend: str,
                   warm: WarmStart | None = None) -> MpcPlan:
+    """The plan through a Riccati backend; with profiling.marks on, a stage
+    mark before the packing (linearizations, stage_qp, the frame
+    rotations), each solver call and its unpacking, and at the end."""
+    profiling.mark("plan.pack", state0)
     solver = {"riccati_resident": solve_stage_qp_resident,
               "riccati_fused": solve_stage_qp_fused,
               "riccati": solve_stage_qp}[backend]
@@ -312,7 +316,10 @@ def _plan_riccati(cfg: EngineConfig, state0, refs: MpcRefs, backend: str,
         if refs.cone_rot is not None and warm is not None:
             # warm forces arrive in the world frame
             warm = warm._replace(u=_forces_to_local(warm.u, refs.cone_rot))
-        sol = solver(stage_qp(cfg, state0, refs, A, B), cfg.solver, warm)
+        qp = stage_qp(cfg, state0, refs, A, B)
+        profiling.mark("plan.ipm", state0)
+        sol = solver(qp, cfg.solver, warm)
+        profiling.mark("plan.unpack", state0)
         if refs.cone_rot is not None:
             sol = sol._replace(u=_forces_to_world(sol.u, refs.cone_rot))
         return sol
@@ -321,6 +328,7 @@ def _plan_riccati(cfg: EngineConfig, state0, refs: MpcRefs, backend: str,
     ones = torch.ones(state0.shape[:-1], dtype=torch.bool,
                       device=state0.device)
     for _ in range(max(1, cfg.mpc.sqp_iters) - 1):   # SQP outer loop
+        profiling.mark("plan.pack", state0)
         A, B = _sqp_relinearize(cfg, state0, refs, sol)
         # each SQP re-solve warm-starts from the previous inner solution
         sol = solve(A, B, WarmStart(u=sol.u, z=sol.z, s=sol.s, valid=ones))
@@ -330,6 +338,7 @@ def _plan_riccati(cfg: EngineConfig, state0, refs: MpcRefs, backend: str,
                       s=sol.s.reshape(sol.s.shape[:-2] + (-1,)),
                       converged=sol.converged, iters=sol.iters,
                       gap=sol.gap, res_norm=sol.res_norm)
+    profiling.mark("plan.end", state0)
     return MpcPlan(forces=sol.u.reshape(sol.u.shape[:-1] + (4, 3)),
                    states=sol.x, sol=diag)
 

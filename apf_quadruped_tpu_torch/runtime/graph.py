@@ -29,14 +29,16 @@ a plan captured inside the cycle's head is part of the head's graph, and
 a WBC solve inside the tick's graph part of that.
 
 A graph is captured on the first use of a `key` (which must hash
-everything the code branches on) and a layout of the inputs (every
-tensor's shape, strides, dtype and device, every other leaf's value, None
-included), and cached: at most MAX_GRAPHS graphs of scans and calls
-together, the least recently used dropped with its memory pool.  A sweep
-holds two for each configuration and batch (the cycle's head and its
-tick), a planner one for each configuration, backend and input layout,
-wbc.solve and solve_qp called on their own one for each configuration
-and input layout.
+everything the code branches on, its first element a name), a layout of
+the inputs (every tensor's shape, strides, dtype and device, every other
+leaf's value, None included) and the state of profiling.marks (a graph
+captured with stage marks holds their kernels), and cached: at most
+MAX_GRAPHS graphs of scans and calls together, the least recently used
+dropped with its memory pool.  A sweep holds three for each
+configuration and batch (the cycle's head, its tick and its tail), a
+planner one for each configuration, backend and input layout, wbc.solve
+and solve_qp called on their own one for each configuration and input
+layout.
 
 Before the capture the body runs once eagerly on a side stream on the
 buffers, its result discarded: it fills the per-device constant caches
@@ -48,17 +50,24 @@ The kernel wrappers count their launches in Python, which a replay does
 not run: the capture records the launches one replay makes, undoes what
 the warm-up and the capture added, and each replay adds them, so the
 counters go on counting launches on the device.
+
+While a profiler records, each replayed call or scan is a span
+`apf: graph.<call|scan> <key's name>` (profiling.trace) with three
+children, `inputs` (the layout's signature, the cache's lookup and the
+copies in), `replay` and `outputs` (the clones or copies out), and each
+warm-up and capture a span `apf: graph.capture <key's name>`.  With no
+profiler a call or scan checks once and opens no span (`_phases`).
 """
 
 from __future__ import annotations
 
 import collections
-import time
 from typing import NamedTuple
 
 import torch
 
 from ..ops import cuda_chol, cuda_riccati
+from . import profiling
 
 MAX_GRAPHS = 16
 
@@ -103,6 +112,14 @@ def _signature(tree):
     return tree
 
 
+def _full_key(kind: str, key, dev, *trees):
+    """The cache's key of a scan's or a call's graph: its kind, the
+    caller's key, the device, the state of profiling.marks and the
+    signature of each tree of inputs."""
+    return (kind, key, dev, profiling.marks_on(),
+            *(_signature(t) for t in trees))
+
+
 def _write_back(dst_tree, src_tree):
     """Copy the new carry into the carry buffers, leaf by leaf.  A leaf the
     step passed through unchanged is skipped; a new leaf that is a view of
@@ -135,8 +152,6 @@ class Captured(NamedTuple):
     k: torch.Tensor | None     # a scan's (1,) int64 step index
     outs: object               # a scan's output buffers, a call's outputs
     launches: tuple[int, ...]  # kernel launches a replay makes, by counter
-    capture_s: float           # warm-up and capture, host clock
-    pool_bytes: int            # device memory the capture reserved
 
 
 _CACHE: collections.OrderedDict = collections.OrderedDict()
@@ -146,44 +161,60 @@ _CACHE: collections.OrderedDict = collections.OrderedDict()
 _nesting = 0
 
 
-def _capture(body, dev):
-    """(graph, what the captured body returned, launches a replay makes,
-    seconds, pool bytes): `body()` run once eagerly on a side stream, its
-    result discarded, then captured."""
+def _capture(name, body, dev):
+    """(graph, what the captured body returned, launches a replay makes):
+    `body()` run once eagerly on a side stream, its result discarded, then
+    captured."""
     global _nesting
-    t0 = time.perf_counter()
     before = _counts()
     _nesting += 1
     try:
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            body()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
-        warm = _counts()
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        graph = torch.cuda.CUDAGraph()
-        pool = torch.cuda.graph_pool_handle()
-        # thread_local: a host read or copy in the body, on this thread,
-        # still breaks the capture and raises; CUDA calls of other threads
-        # (NCCL's watchdog in a process group) do not
-        try:
-            with torch.cuda.graph(graph, pool=pool,
-                                  capture_error_mode="thread_local"):
-                out = body()
-        except BaseException:
-            _drop_failed_pool(dev, pool)
-            raise
-        torch.cuda.synchronize(dev)
+        with profiling.trace("graph.capture", name):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                body()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)
+            warm = _counts()
+            torch.cuda.empty_cache()
+            graph = torch.cuda.CUDAGraph()
+            pool = torch.cuda.graph_pool_handle()
+            # thread_local: a host read or copy in the body, on this
+            # thread, still breaks the capture and raises; CUDA calls of
+            # other threads (NCCL's watchdog in a process group) do not
+            try:
+                with torch.cuda.graph(graph, pool=pool,
+                                      capture_error_mode="thread_local"):
+                    out = body()
+            except BaseException:
+                _drop_failed_pool(dev, pool)
+                raise
+            torch.cuda.synchronize(dev)
     finally:
         _nesting -= 1
     launches = tuple(c - w for c, w in zip(_counts(), warm))
     for f, n in zip(_counters(), before):
         f.launches = n
-    return (graph, out, launches, time.perf_counter() - t0,
-            torch.cuda.memory_reserved(dev) - reserved)
+    return graph, out, launches
+
+
+def _phases(kind, name, copy_in, replay, copy_out):
+    """`copy_out(x)` after `replay(x)`, where x = `copy_in()`: while a
+    profiler records, each phase a child span (`inputs`, `replay`,
+    `outputs`) of `apf: graph.<kind> <name>`; otherwise no span, after one
+    check."""
+    if not profiling.recording():
+        x = copy_in()
+        replay(x)
+        return copy_out(x)
+    with profiling.trace(f"graph.{kind}", name):
+        with profiling.trace("inputs"):
+            x = copy_in()
+        with profiling.trace("replay"):
+            replay(x)
+        with profiling.trace("outputs"):
+            return copy_out(x)
 
 
 def _drop_failed_pool(dev, pool):
@@ -233,8 +264,7 @@ def scan(key, step, inputs, carry, outs, n: int):
     as replays of the step's captured graph; `outs` are filled in place
     and the final carry is returned in fresh tensors."""
     dev = _cuda_device(carry, "scan")
-    full = ("scan", key, dev, _signature(inputs), _signature(carry),
-            _signature(outs))
+    name = key[0]       # the graph's name in spans
 
     def make():
         s_inputs = _map(torch.clone, inputs)
@@ -246,20 +276,26 @@ def scan(key, step, inputs, carry, outs, n: int):
             _write_back(s_carry, step(s_inputs, s_carry, s_k, s_outs))
             s_k.add_(1)
 
-        graph, _, launches, secs, nbytes = _capture(body, dev)
-        return Captured(graph, s_inputs, s_carry, s_k, s_outs, launches,
-                        secs, nbytes)
+        graph, _, launches = _capture(name, body, dev)
+        return Captured(graph, s_inputs, s_carry, s_k, s_outs, launches)
 
-    with torch.cuda.device(dev):
-        entry = _cached(full, make)
+    def copy_in():
+        entry = _cached(_full_key("scan", key, dev, inputs, carry, outs),
+                        make)
         for d, s in zip(_tensors(entry.inputs) + _tensors(entry.carry),
                         _tensors(inputs) + _tensors(carry)):
             d.copy_(s)
         entry.k.zero_()
-        _replay(entry, n)
+        return entry
+
+    def copy_out(entry):
         for d, s in zip(_tensors(outs), _tensors(entry.outs)):
             d.copy_(s)
         return _map(torch.clone, entry.carry)
+
+    with torch.cuda.device(dev):
+        return _phases("scan", name, copy_in, lambda e: _replay(e, n),
+                       copy_out)
 
 
 def call(key, fn, inputs):
@@ -277,24 +313,28 @@ def call(key, fn, inputs):
     dev = _cuda_device(inputs, "call")
     if _nesting or torch.cuda.is_current_stream_capturing():
         return fn(inputs)
-    full = ("call", key, dev, _signature(inputs))
+    name = key[0]       # the graph's name in spans
 
     def make():
         s_inputs = _map(torch.clone, inputs)
-        graph, outs, launches, secs, nbytes = _capture(
-            lambda: fn(s_inputs), dev)
-        return Captured(graph, s_inputs, None, None, outs, launches, secs,
-                        nbytes)
+        graph, outs, launches = _capture(name, lambda: fn(s_inputs), dev)
+        return Captured(graph, s_inputs, None, None, outs, launches)
 
-    with torch.cuda.device(dev):
-        entry = _cached(full, make)
-        given = _tensors(inputs)
+    given = _tensors(inputs)
+
+    def copy_in():
+        entry = _cached(_full_key("call", key, dev, inputs), make)
         for d, s in zip(_tensors(entry.inputs), given):
             d.copy_(s)
-        _replay(entry)
+        return entry
+
+    def copy_out(entry):
         passed = {id(d): s for d, s in zip(_tensors(entry.inputs), given)}
         return _map(lambda t: passed[id(t)] if id(t) in passed
                     else t.clone(), entry.outs)
+
+    with torch.cuda.device(dev):
+        return _phases("call", name, copy_in, _replay, copy_out)
 
 
 def entries() -> list[Captured]:

@@ -44,7 +44,7 @@ from ..ops.riccati import WarmStart
 from ..ops.rotations import rot_to_rpy
 from ..sim import disturbance, physics
 from ..sim import terrain as terrain_mod
-from . import graph, observer
+from . import graph, observer, profiling
 
 
 class LoopState(NamedTuple):
@@ -148,11 +148,14 @@ def _tick(cfg: EngineConfig, cyc: _CycleInputs, carry, k: torch.Tensor):
     prev_contact (B, 4) bool, ObserverState); k (1,) int64 on the
     tensors' device.  Returns (carry, the TRACE values, each (B,))."""
     sim_st, ast, _, _, _, obs = carry
+    profiling.mark("tick.refs", k)
     wst, ref, td_flag, td_pos = _tick_refs(cfg, cyc, carry, k)
     out = wbc.solve(cfg, wst, ref)
+    profiling.mark("physics", k)
     fd, ff = disturbance.eval_links(cyc.dist_sched, sim_st.t)
     sim_st, cinfo = physics.step(cfg, sim_st, out.tau, cyc.terr, f_dist=fd,
                                  f_feet=ff)
+    profiling.mark("tick.tail", k)
     return _tick_tail(cfg, (sim_st, ast, td_flag, td_pos, cinfo.in_contact,
                             obs), out, cinfo, ref)
 
@@ -248,10 +251,13 @@ def _trace_buffers(B: int, n_ticks: int, dtype, device):
 
 def _step(cfg: EngineConfig, cyc: _CycleInputs, carry, k: torch.Tensor,
           trace):
-    """_tick, its trace values written into `trace` at column k."""
+    """_tick, its trace values written into `trace` at column k; with
+    profiling.marks on, a stage mark at each of the tick's stages and at
+    its end."""
     carry, row = _tick(cfg, cyc, carry, k)
     for buf, v in zip(trace, row):
         buf.index_copy_(1, k, v.unsqueeze(1))
+    profiling.mark("tick.end", k)
     return carry
 
 
@@ -275,8 +281,8 @@ def _scan_ticks(cfg: EngineConfig, cyc: _CycleInputs, carry, n_ticks: int):
     if q.device.type != "cuda":
         return _scan_ticks_eager(cfg, cyc, carry, n_ticks)
     trace = _trace_buffers(q.shape[0], n_ticks, q.dtype, q.device)
-    carry = graph.scan((cfg, n_ticks), functools.partial(_step, cfg), cyc,
-                       carry, trace, n_ticks)
+    carry = graph.scan(("tick", cfg, n_ticks), functools.partial(_step, cfg),
+                       cyc, carry, trace, n_ticks)
     return carry, trace
 
 
@@ -308,11 +314,17 @@ def run_cycle(cfg: EngineConfig, st: LoopState, terr: terrain_mod.Terrain,
               dist_sched: torch.Tensor) -> tuple[LoopState, CycleMetrics]:
     """One replan cycle for every scenario of the batch: navigate, plan,
     track.  terr holds (B, res, res) grids, target_xy (B, 2), dist_sched
-    (B, n_events, 8).  Runs with TF32 off throughout."""
-    with highest_precision():
-        head = _cycle_head(cfg, st, terr, target_xy, dist_sched)
-        carry, trace = _scan_ticks(cfg, head.cyc, head.carry, head.n_ticks)
-        return _cycle_tail(cfg, head.tail, carry, trace)
+    (B, n_events, 8).  Runs with TF32 off throughout.  While a profiler
+    records, a span `apf: loop.run_cycle` holds `loop.cycle_head`,
+    `loop.scan_ticks` and `loop.cycle_tail`."""
+    with highest_precision(), profiling.trace("loop.run_cycle"):
+        with profiling.trace("loop.cycle_head"):
+            head = _cycle_head(cfg, st, terr, target_xy, dist_sched)
+        with profiling.trace("loop.scan_ticks"):
+            carry, trace = _scan_ticks(cfg, head.cyc, head.carry,
+                                       head.n_ticks)
+        with profiling.trace("loop.cycle_tail"):
+            return _cycle_tail(cfg, head.tail, carry, trace)
 
 
 def _cycle_head(cfg: EngineConfig, st: LoopState,

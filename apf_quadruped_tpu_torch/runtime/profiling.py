@@ -2,10 +2,19 @@
 
 Port of apf_quadruped_tpu/runtime/profiling.py:
 
-  * `trace(name)`: a named region for torch.profiler
-    (`record_function`).  With APF_PROFILE_DIR set, the outermost trace
-    also runs a torch.profiler capture (host, and the card where there is
-    one) and writes it there as a Chrome trace, `<name>-<pid>-<ns>.json`.
+  * `trace(*name)`: a host span named `apf: <name>` while a
+    torch.profiler session records (`record_function`; the session's
+    device trace shares its clock, so an idle gap on the device falls
+    under the span that held the host); otherwise a shared null context,
+    after one check of the profiler's state (`recording()`, which a
+    caller of several spans checks once to skip them all).
+  * `mark(stage, like)` and the switch `marks(on)`: with marks on and
+    `like` on a card, an empty one-thread kernel `apf_mark_kernel<ID>`
+    launched at a stage boundary (eagerly, or as a node of the graph
+    being captured), which a device trace shows by name, ID = the
+    stage's index in STAGES; off by default, and a no-op on the CPU.
+    runtime/graph.py keys every graph on the switch, so a graph captured
+    with marks never serves a call without them, nor the reverse.
   * `timed(fn)`: wall-clock time per call, fenced by
     torch.cuda.synchronize() when the output lies on a card (a CUDA call
     returns before the card has done the work).
@@ -17,40 +26,80 @@ Port of apf_quadruped_tpu/runtime/profiling.py:
 from __future__ import annotations
 
 import contextlib
-import contextvars
-import os
+import ctypes
 import time
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
 
-# the capture of the outermost trace() of this context, if any
-_capture = contextvars.ContextVar("apf_profile_capture", default=None)
+# the prefix of every span's name in a trace
+PREFIX = "apf: "
+
+_NULL = contextlib.nullcontext()
+
+
+def recording() -> bool:
+    """Whether a torch.profiler session records on this thread."""
+    return torch.autograd._profiler_enabled()
+
+
+def trace(*name):
+    """A span `apf: <name>` (the parts joined by spaces) for the profiler
+    that records, or a shared null context where none does."""
+    if not torch.autograd._profiler_enabled():
+        return _NULL
+    return torch.profiler.record_function(
+        PREFIX + " ".join(str(p) for p in name))
+
+
+# the stages a mark opens, in the order of their IDs: a tick (loop._step),
+# the WBC solve (wbc._solve_impl, inside the tick and alone) and the
+# Riccati plan (planner._plan_riccati); each `*.end` closes its unit
+STAGES = ("tick.refs", "wbc.build", "wbc.qp", "wbc.torque", "wbc.end",
+          "physics", "tick.tail", "tick.end", "plan.pack", "plan.ipm",
+          "plan.unpack", "plan.end")
+_STAGE_ID = {s: i for i, s in enumerate(STAGES)}
+
+_marks_on = False
+
+
+def marks_on() -> bool:
+    """Whether `mark` launches its kernels."""
+    return _marks_on
 
 
 @contextlib.contextmanager
-def trace(name: str):
-    """Annotate a region for torch.profiler; if APF_PROFILE_DIR is set,
-    the outermost trace() also captures a profile and writes it there."""
-    prof_dir = os.environ.get("APF_PROFILE_DIR")
-    if not prof_dir or _capture.get() is not None:
-        with torch.profiler.record_function(name):
-            yield
-        return
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    prof = torch.profiler.profile(activities=activities)
-    token = _capture.set(prof)
+def marks(on: bool = True):
+    """Stage marks on (or off) inside the block; on a machine with a card
+    the marks' library is built and loaded on the first entry with marks
+    on."""
+    global _marks_on
+    if on and torch.cuda.is_available():
+        from .. import _kernels
+        _kernels.apf_mark()
+    old, _marks_on = _marks_on, bool(on)
     try:
-        with prof, torch.profiler.record_function(name):
-            yield
+        yield
     finally:
-        _capture.reset(token)
-    os.makedirs(prof_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(
-        prof_dir, f"{name}-{os.getpid()}-{time.time_ns()}.json"))
+        _marks_on = old
+
+
+def mark(stage: str, like: torch.Tensor):
+    """The start of `stage` (one of STAGES) on the device: with marks on
+    and `like` on a card, apf_mark_kernel<ID> on the current stream;
+    otherwise nothing."""
+    sid = _STAGE_ID[stage]
+    if not _marks_on or like.device.type != "cuda":
+        return
+    from .. import _kernels
+    dev = like.device
+    with torch.cuda.device(dev):
+        err = _kernels.apf_mark().apf_mark_launch(
+            sid, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if err:
+        raise RuntimeError(f"apf_mark_launch({stage}) failed: CUDA error "
+                           f"{err}")
 
 
 def _on_cuda(tree) -> bool:

@@ -24,7 +24,7 @@ from .._device import resolve_device
 from ..config import EngineConfig
 from ..parallel import mesh as mesh_mod
 from ..sim import disturbance, terrain as terrain_mod
-from . import checkpoint, loop, native
+from . import checkpoint, loop, native, profiling
 
 
 class Scenario(NamedTuple):
@@ -122,9 +122,11 @@ def init_batch(cfg: EngineConfig, scn: Scenario) -> loop.LoopState:
 def step_batch(cfg: EngineConfig, scn: Scenario, states: loop.LoopState,
                n_cycles: int):
     """Advance a batch of LoopStates n_cycles: (states', CycleMetrics
-    stacked (B, n_cycles, ...))."""
-    return loop.run(cfg, states, _terrain(cfg, scn), scn.target_xy,
-                    scn.dist_sched, n_cycles)
+    stacked (B, n_cycles, ...)); a span `apf: sweep.step_batch` while a
+    profiler records."""
+    with profiling.trace("sweep.step_batch"):
+        return loop.run(cfg, states, _terrain(cfg, scn), scn.target_xy,
+                        scn.dist_sched, n_cycles)
 
 
 def run_batch(cfg: EngineConfig, scn: Scenario, n_cycles: int) -> SweepResult:

@@ -37,7 +37,7 @@ from .models import rbd
 from .models.dogbot import joint_limits
 from .ops.qpsolve import QPData, QPSolution, _solve_qp_eager
 from .ops.rotations import rot_to_rpy, skew
-from .runtime import graph
+from .runtime import graph, profiling
 
 NX = 30      # 18 accelerations + 12 forces
 NEQ = 30     # 6 dynamics + 12 no-slip + 12 swing-force-zero
@@ -309,8 +309,13 @@ def _solve_eager(cfg: EngineConfig, st: WbcState, ref: WbcRefs) -> WbcOutput:
 
 
 def _solve_impl(cfg: EngineConfig, st: WbcState, ref: WbcRefs) -> WbcOutput:
+    """The WBC tick: the QP's data, its solve, the torque map; with
+    profiling.marks on, a stage mark before each and at the end."""
+    profiling.mark("wbc.build", st.q)
     qp, (M, h, Jc, com) = _build_qp(cfg, st, ref)
+    profiling.mark("wbc.qp", st.q)
     sol = _solve_qp_eager(qp, cfg.solver)
+    profiling.mark("wbc.torque", st.q)
     udot, f = sol.x[..., 0:18], sol.x[..., 18:30]
     r = _mv(M, udot) + h - _mtv(Jc, f)
     tau = r[..., 6:18]
@@ -325,6 +330,7 @@ def _solve_impl(cfg: EngineConfig, st: WbcState, ref: WbcRefs) -> WbcOutput:
                              - Js6[..., 0:3, :], -Js6[..., 3:6, :]], dim=-2)
         tau = tau + _mtv(Tinv_bj, r[..., 0:6])
     tau = torch.clamp(tau, -cfg.robot.tau_max, cfg.robot.tau_max)
+    profiling.mark("wbc.end", st.q)
     return WbcOutput(tau=tau, udot=udot,
                      forces=f.reshape(f.shape[:-1] + (4, 3)), sol=sol,
                      M=M, h_bias=h, Jc=Jc)

@@ -1987,9 +1987,7 @@ def graphed_tick(dev, card, main_path):
               f"{n_ticks} ticks after the capturing one, "
               f"{[round(w, 4) for w in walls]} s, host clock; the "
               f"capturing cycle {capturing:.3f} s); qp_converged mean "
-              f"{float(met.qp_converged.mean()):.4f}; capture "
-              f"{entry.capture_s:.3f} s, memory pool {entry.pool_bytes} "
-              f"bytes; the device's span of a cycle's ticks "
+              f"{float(met.qp_converged.mean()):.4f}; the device's span of a cycle's ticks "
               f"{[round(v, 4) for v in spans]} s (CUDA events around "
               f"graph.scan), {1e3 * median(spans) / n_ticks:.4f} ms a tick; "
               f"the rest of the cycle (its head's replay: navigation and "
@@ -2278,8 +2276,7 @@ def graphed_plan(dev, card):
               f"converged {float(out.sol.converged.float().mean()):.4f}; the "
               f"graph's device time {dev_ms:.4f} ms a plan (CUDA events, 20 "
               f"back-to-back replays), {B / dev_ms * 1e3:.1f} solves/s at "
-              f"it; capture {entry.capture_s:.3f} s, memory pool "
-              f"{entry.pool_bytes} bytes", flush=True)
+              f"it", flush=True)
 
     # ---- (c) replan latency at B=1 and B=64, in turns ---------------------
     cfg = cfg_of("auto")
@@ -2317,8 +2314,7 @@ def graphed_plan(dev, card):
               f"backend 'auto', each plan fenced by torch.cuda.synchronize(), "
               f"{len(lat['graphed'])} plans a side in turns): {line}; the "
               f"graph's device time {dev_ms:.4f} ms (CUDA events, 50 "
-              f"back-to-back replays); capture {entry.capture_s:.3f} s, "
-              f"memory pool {entry.pool_bytes} bytes", flush=True)
+              f"back-to-back replays)", flush=True)
         check(percentile(lat["graphed"], 50) < percentile(lat["eager"], 50),
               f"B={B}: the graphed replan is faster than the eager one")
 
@@ -2352,9 +2348,6 @@ def graphed_plan(dev, card):
 
         head = loop._cycle_head(cfg, *args)
         check(same_bits(head, head_eager()), f"B={Bn}: the head's graph")
-        entry = [e for e in graph.entries()
-                 if isinstance(e.outs, loop._CycleHead)
-                 and e.outs.n_ticks == head.n_ticks][0]
         # the tail on the first cycle's 20 ticks of trace
         tail_in = (head.tail, seen["carry"], seen["trace"])
 
@@ -2390,9 +2383,8 @@ def graphed_plan(dev, card):
               f"graphed {med['tail graphed']:.4f} ms, eager "
               f"{med['tail eager']:.4f} ms; outside the ticks: "
               f"{med['head graphed'] + med['tail graphed']:.4f} ms graphed, "
-              f"{med['head eager'] + med['tail eager']:.4f} ms eager; the "
-              f"head's capture {entry.capture_s:.3f} s, memory pool "
-              f"{entry.pool_bytes} bytes", flush=True)
+              f"{med['head eager'] + med['tail eager']:.4f} ms eager",
+              flush=True)
         graph.clear()
 
     # ---- (e) phase 3's production-shape parity counts ----------------------
@@ -2441,11 +2433,6 @@ def wbc_latency(dev, card):
         return [e for e in graph.entries()
                 if isinstance(e.outs, wbc.WbcOutput)
                 and e.outs.tau.shape[0] == B][0]
-
-    def qp_entry(B):
-        return [e for e in graph.entries()
-                if isinstance(e.outs, qpsolve.QPSolution)
-                and e.outs.x.shape[0] == B][0]
 
     # ---- (a) graphed against eager, bit for bit ---------------------------
     t0 = time.perf_counter()
@@ -2500,12 +2487,6 @@ def wbc_latency(dev, card):
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     check(all(same.values()), "the graphed wbc.solve and solve_qp equal "
           "their eager bodies bit for bit")
-    for B in batches:
-        w, qe = wbc_entry(B), qp_entry(B)
-        print(f"[wbc graph] {card}: B={B}: wbc.solve's graph: capture "
-              f"{w.capture_s:.3f} s, memory pool {w.pool_bytes} bytes; "
-              f"solve_qp's graph: capture {qe.capture_s:.3f} s, memory pool "
-              f"{qe.pool_bytes} bytes", flush=True)
 
     # ---- (b) wall latency a call, graphed and eager in turns ---------------
     for B in batches:
@@ -2605,7 +2586,6 @@ def wbc_latency(dev, card):
     marg_ms, marg_p99 = float(marg.mean() * 1e3), percentile(marg * 1e3, 99)
     check(np.isfinite(marg_ms) and np.isfinite(marg_p99),
           "finite marginal times")
-    scans = [e for e in graph.entries() if e.k is not None]
     print(f"[wbc latency] {card}: the marginal WBC solve in a tick scan, "
           f"B=1 (graph.scan of K wbc.solve ticks, tick k at q0 + dq[k]; 20 "
           f"calls of each K, each fenced by torch.cuda.synchronize(); "
@@ -2614,8 +2594,7 @@ def wbc_latency(dev, card):
           f"{marg_p99 / budget_ms:.3f}x; a "
           f"{1e3 * t64.mean() - 64 * marg_ms:.4f} ms; t(64) mean "
           f"{1e3 * t64.mean():.3f} ms, t(256) mean "
-          f"{1e3 * t256.mean():.3f} ms; converged {conv_c:.4f}; the scans' "
-          f"pools {[e.pool_bytes for e in scans]} bytes", flush=True)
+          f"{1e3 * t256.mean():.3f} ms; converged {conv_c:.4f}", flush=True)
     graph.clear()
 
 
@@ -3049,8 +3028,7 @@ def switch_worlds_options(dev, card):
               f"{decisions or 'none'}; launches "
               f"{launches} (resident IPM at H={cfg.mpc.horizon}{rows}, "
               f"{cfg.mpc.sqp_iters} a cycle; SPD kernels at n=30 and 18); "
-              f"{len(captures)} graphs captured, their pools "
-              f"{sum(e.pool_bytes for e in captures)} bytes", flush=True)
+              f"{len(captures)} graphs captured", flush=True)
         check(launches["resident_ipm"] == n * cfg.mpc.sqp_iters,
               f"{case}: the resident IPM sqp_iters times a cycle")
         check(all(v > 0 for v in launches.values()),

@@ -1704,3 +1704,146 @@ def test_graphed_sweep_holds_no_wbc_graph(dev):
     assert len(graph.entries()) == 3
     assert bool(torch.isfinite(res.final_com).all())
     graph.clear()
+
+
+# ---------------------------------------------------------------------------
+# stage marks (runtime/profiling.mark) in the captured graphs, and the
+# graph spans (runtime/graph.py) on the card
+# ---------------------------------------------------------------------------
+
+def _marked_case(what, dev):
+    """(fn() of one unit of `what` on the card, the units a call makes:
+    {unit's first stage: count})."""
+    from apf_quadruped_tpu_torch import wbc
+    from apf_quadruped_tpu_torch.runtime import loop
+    if what == "tick":
+        cfg, terr, tgt, dist = _graph_case("trot", dev)
+        st = loop.init(cfg, GRAPH_B, device=dev)
+        n_ticks = int(round(cfg.gait.trot_cycle / cfg.sim.dt))
+        return (lambda: loop.run_cycle(cfg, st, terr, tgt, dist),
+                {"tick.refs": n_ticks, "plan.pack": 1})
+    if what.startswith("wbc"):
+        B = int(what.split("B=")[1])
+        cfg, st, ref = _wbc_case("ref_exact=True cone_rot=True trot", B,
+                                 dev)
+        return lambda: wbc.solve(cfg, st, ref), {"wbc.build": 1}
+    option = what.split(" ", 1)[1]
+    cfg = _plan_cfg(option)
+    x0, refs = _plan_problem(option, cfg, 64, dev, 0)
+    return (lambda: planner.plan(cfg, x0, refs),
+            {"plan.pack": cfg.mpc.sqp_iters})
+
+
+# the stages of each unit, by its first stage
+_UNIT_STAGES = {"tick.refs": ("tick.refs", "wbc.build", "wbc.qp",
+                              "wbc.torque", "wbc.end", "physics",
+                              "tick.tail", "tick.end"),
+                "wbc.build": ("wbc.build", "wbc.qp", "wbc.torque",
+                              "wbc.end"),
+                "plan.pack": ("plan.pack", "plan.ipm", "plan.unpack")}
+
+MARKED = ["tick", "wbc B=1", "wbc B=64", "plan resident", "plan fused",
+          "plan sqp_iters=2"]
+
+
+def _mark_counts(fn, tries=4):
+    """{stage: marks recorded} in a profile of fn() (fenced), profiled
+    again, up to `tries` times, where the profiler lost any of the port's
+    counted launches."""
+    import collections
+
+    from apf_quadruped_tpu_torch.runtime import graph, profiling
+    from portbench import marked, trace as ptrace
+    for _ in range(tries):
+        before = sum(graph._counts())
+
+        def fenced():
+            fn()
+            torch.cuda.synchronize()
+        tr = ptrace.profile(fenced, graph._counts, min_share=1.0, tries=1)
+        if ptrace.counted(tr.kernels) == sum(graph._counts()) - before:
+            break
+    marks, _ = marked.split(tr.kernels, profiling.STAGES)
+    return collections.Counter(s for s, _, _ in marks), tr
+
+
+@pytest.mark.parametrize("what", MARKED)
+def test_marked_graphs_equal_unmarked(dev, what):
+    """A graph captured with marks on is a graph of its own, and its
+    replay gives the unmarked replay's outputs bit for bit; the launch
+    counters advance by the same launches a replay."""
+    from apf_quadruped_tpu_torch.runtime import graph, profiling
+    fn, _ = _marked_case(what, dev)
+    graph.clear()
+    plain = fn()
+    n = len(graph.entries())
+    unmarked = graph.entries()
+    with profiling.marks(True):
+        marked = fn()
+        assert len(graph.entries()) == 2 * n
+        n0 = graph._counts()
+        again = fn()
+        per_marked = tuple(b - a for a, b in zip(n0, graph._counts()))
+    n0 = graph._counts()
+    fn()
+    per_plain = tuple(b - a for a, b in zip(n0, graph._counts()))
+    assert len(graph.entries()) == 2 * n
+    assert per_marked == per_plain and sum(per_plain) > 0
+    news = [e for e in graph.entries() if all(e is not u for u in unmarked)]
+    assert sorted(e.launches for e in news) == sorted(e.launches
+                                                      for e in unmarked)
+    _assert_same_bits(plain, marked)
+    _assert_same_bits(plain, again)
+    graph.clear()
+
+
+@pytest.mark.parametrize("what", MARKED)
+def test_marked_replay_records_each_mark_once_per_unit(dev, what):
+    """A profile of one marked replay holds each of a unit's marks once a
+    unit, and nothing else; an unmarked replay, its marked graph cached
+    beside it, records no mark."""
+    from apf_quadruped_tpu_torch.runtime import graph, profiling
+    fn, units = _marked_case(what, dev)
+    graph.clear()
+    fn()
+    with profiling.marks(True):
+        fn()
+        counts, tr = _mark_counts(fn)
+    want = {s: n for first, n in units.items()
+            for s in _UNIT_STAGES[first]}
+    if "plan.pack" in units:     # one end a plan, whatever its SQP steps
+        want["plan.end"] = 1
+    assert dict(counts) == want, (counts, tr.share)
+    counts, tr = _mark_counts(fn)
+    assert not counts and not any("apf_mark_kernel" in n
+                                  for n, _, _ in tr.kernels)
+    graph.clear()
+
+
+def test_graph_spans_nest_on_the_card(dev):
+    """Under a profiler a graph's capture, and each call's and scan's
+    inputs, replay and outputs, are spans named by the graph's key; a
+    cycle holds its head's call, its ticks' scan and its tail's call."""
+    from apf_quadruped_tpu_torch.runtime import graph
+    fn_wbc, _ = _marked_case("wbc B=1", dev)
+    fn_tick, _ = _marked_case("tick", dev)
+    graph.clear()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn_wbc()
+        fn_wbc()
+        fn_tick()
+    names = [e.name for e in prof.events() if e.name.startswith("apf: ")]
+    for n in ("apf: graph.capture wbc", "apf: graph.capture tick",
+              "apf: graph.capture cycle head", "apf: graph.scan tick",
+              "apf: graph.call cycle head", "apf: graph.call cycle tail",
+              "apf: loop.run_cycle", "apf: loop.scan_ticks"):
+        assert n in names, n
+    assert names.count("apf: graph.call wbc") == 2
+    calls = [e for e in prof.events() if e.name == "apf: graph.call wbc"]
+    for part in ("apf: inputs", "apf: replay", "apf: outputs"):
+        inside = [e for e in prof.events() if e.name == part
+                  and calls[1].time_range.start <= e.time_range.start
+                  and e.time_range.end <= calls[1].time_range.end]
+        assert len(inside) == 1, part
+    graph.clear()
