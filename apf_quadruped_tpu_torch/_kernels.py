@@ -97,6 +97,36 @@ def resident_ipm(src: Path = CSRC / "resident_ipm.cu",
     return lib
 
 
+class QpArgs(ctypes.Structure):
+    """Mirror of `struct QpArgs` in csrc/resident_qp.cu (same order)."""
+
+    _fields_ = ([(f, ctypes.c_void_p) for f in (
+        "P", "q", "A", "b", "G", "h", "em", "im", "x", "y", "z", "s", "conv",
+        "iters", "gap", "res")]
+        + [(f, ctypes.c_int) for f in ("B", "n", "p", "m", "n_iter",
+                                       "refine")]
+        + [(f, ctypes.c_float) for f in (
+            "reltol", "abstol", "frac", "sigma_pow", "static_reg", "eq_reg",
+            "min_slack", "w_clip")])
+
+
+@functools.cache
+def resident_qp(src: Path = CSRC / "resident_qp.cu",
+                name: str = "resident_qp") -> ctypes.CDLL:
+    """The resident whole-body QP library (csrc/resident_qp.cu, or another
+    version of it at `src`, built as `name`), built and loaded once per
+    process."""
+    lib = ctypes.CDLL(str(build(name, [src])))
+    lib.resident_qp_launch.argtypes = [ctypes.POINTER(QpArgs),
+                                       ctypes.c_void_p]
+    lib.resident_qp_launch.restype = ctypes.c_int
+    lib.resident_qp_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+    lib.resident_qp_limits.restype = None
+    lib.resident_qp_prefer_shared.argtypes = []
+    lib.resident_qp_prefer_shared.restype = ctypes.c_int
+    return lib
+
+
 @functools.cache
 def spd_chol(src: Path = CSRC / "spd_chol.cu",
              name: str = "spd_chol") -> ctypes.CDLL:

@@ -15,11 +15,16 @@ zero step), and the loop never reads a value back to the host.  Masked
 inequality rows become 0'x <= 1 and masked equality rows 0'x = 0 with a
 unit diagonal in the Schur complement.
 
-The SPD factor and solves go through ops/chol.py: the hand-written CUDA
-kernels for CUDA tensors, the plain PyTorch version on the CPU.  On the
-card a solve is one replay of its captured CUDA graph (runtime/graph.call:
-the counterpart of the JAX package's jitted `solve_qp`), bit for bit the
-eager body `_solve_qp_eager`, which the CPU runs.
+On the card, in float32 and at the WBC's sizes (n <= 30, p <= 30, m <= 72:
+ops/cuda_qp.takes, a rule on device, dtype and shape), the whole solve is
+one launch of the resident QP kernel (ops/cuda_qp.py, csrc/resident_qp.cu).
+Everything else runs `_solve_qp_impl` op by op, its SPD factor and solves
+through ops/chol.py: the hand-written CUDA kernels for CUDA tensors (the
+condensed planner's n = 12H, another dtype), the plain PyTorch version on
+the CPU.  On the card a solve is one replay of its captured CUDA graph
+(runtime/graph.call: the counterpart of the JAX package's jitted
+`solve_qp`), bit for bit the eager body `_solve_qp_eager`, which the CPU
+runs.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch
 from .._precision import highest_precision
 from ..config import SolverConfig
 from ..runtime import graph
+from . import cuda_qp
 from .chol import spd_factor, spd_solve
 
 
@@ -98,7 +104,10 @@ def solve_qp(qp: QPData, cfg: SolverConfig = SolverConfig()) -> QPSolution:
 
 
 def _solve_qp_eager(qp: QPData, cfg: SolverConfig) -> QPSolution:
-    """solve_qp's body, run op by op."""
+    """solve_qp's body: one launch of the resident QP kernel where
+    cuda_qp.takes the QP, else `_solve_qp_impl` op by op."""
+    if cuda_qp.takes(qp):
+        return QPSolution(*cuda_qp.solve_qp_resident(qp, cfg))
     with highest_precision():
         return _solve_qp_impl(qp, cfg)
 

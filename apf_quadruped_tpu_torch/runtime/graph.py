@@ -66,7 +66,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops import cuda_chol, cuda_riccati
+from ..ops import cuda_chol, cuda_qp, cuda_riccati
 from . import profiling
 
 MAX_GRAPHS = 16
@@ -76,7 +76,8 @@ def _counters():
     """The kernel wrappers, each with its `launches` count."""
     return (cuda_chol.chol_factor, cuda_chol.chol_sub, cuda_chol.chol_solve,
             cuda_riccati.solve_stage_qp_resident, cuda_riccati.fused_rollout,
-            cuda_riccati.fused_factor, cuda_riccati.fused_vector)
+            cuda_riccati.fused_factor, cuda_riccati.fused_vector,
+            cuda_qp.solve_qp_resident)
 
 
 def _counts() -> tuple[int, ...]:

@@ -30,7 +30,8 @@ Phases; each raises on failure, so any failure exits non-zero:
   8. the SPD kernels vs their plain versions (ops.chol) on the card at
      n in {18, 30, 64}, k in {1, 30}, B in {1, 64, 1030}, a lane that is
      not positive definite, and solve_qp on WBC-shaped QPs (n=30, p=30,
-     m=68, B=1024) through the kernels vs the plain route (CPU);
+     m=68, B=1024) through the resident QP kernel (csrc/resident_qp.cu,
+     one launch a solve, no SPD kernel) vs the plain route (CPU);
   9. the closed loop, its ticks replayed from a captured CUDA graph of the
      tick (runtime/graph.py): (a) the JAX suite's health case (flat
      ground, target (0, 1), B=8; 2 cycles, cut from its 4 for time, its
@@ -49,7 +50,11 @@ Phases; each raises on failure, so any failure exits non-zero:
      of their launches profiled again; the window total beside it), with
      the library's kernels and the card's SM clock and power beside them
      (factor and substitution k = 1 and 30 at n=30, B in {64, 1024}; n=18,
-     B=64), and against their plain versions;
+     B=64), and against their plain versions; the resident QP kernel at
+     B in {1, 64, 1024} on the WBC's QPs (problems.wbc_problem): its
+     device time (a profiler window, and CUDA events over replays of a
+     graph of the call), the op-by-op chain it replaces (_solve_qp_impl on
+     the card, a graph of it replayed) and its bound;
  11. build: the fused Riccati passes (csrc/fused_riccati.cu) and the
      rebuilt spd_chol (with chol_solve), built with nvcc together with the
      others in phase 2 (timed, ptxas lines);
@@ -526,6 +531,7 @@ def closed_loop(dev, card, build_spd_s):
     print(f"[build] spd_chol built and loaded in {build_spd_s:.1f} s "
           f"(alongside resident_ipm)", flush=True)
     print_ptxas(_kernels, "spd_chol")
+    print_ptxas(_kernels, "resident_qp")
 
     # ---- 8. SPD kernels vs plain on the card ------------------------------
     # gate: L, dinv and X within 1e-5 of the plain version (cuSOLVER
@@ -577,7 +583,8 @@ def closed_loop(dev, card, build_spd_s):
           "and the plain version")
     check(others, "the other lanes stay finite")
 
-    # solve_qp on WBC-shaped QPs through the kernels vs the plain route:
+    # solve_qp on WBC-shaped QPs through the resident QP kernel vs the
+    # plain route:
     # tests/test_qpsolve.py's generator, n=30, m=68, p=30 with the WBC's
     # masks (18 of 30 equality rows, 12 of 20 pyramid rows), production
     # SolverConfig() in float32.  Gates: converged/iters agree on >= 99.5%
@@ -600,12 +607,15 @@ def closed_loop(dev, card, build_spd_s):
                     (rng.uniform(size=(Bq, 20)) < 0.6).astype(float),
                     np.ones((Bq, 48))], axis=1))
     data = {k: v.astype(np.float32) for k, v in data.items()}
-    before = (cuda_chol.chol_factor.launches, cuda_chol.chol_sub.launches)
+    before = read_launches()
     sol_k = qpsolve.solve_qp(convert.qp_data(data, dev), SolverConfig())
     sol_p = qpsolve.solve_qp(convert.qp_data(data, "cpu"), SolverConfig())
-    check(cuda_chol.chol_factor.launches > before[0]
-          and cuda_chol.chol_sub.launches > before[1],
-          "solve_qp on CUDA tensors launched the SPD kernels")
+    after = read_launches()
+    check(after["resident_qp"] == before["resident_qp"] + 1
+          and after["spd_chol_factor"] == before["spd_chol_factor"]
+          and after["spd_chol_sub"] == before["spd_chol_sub"],
+          "solve_qp on CUDA tensors launched the resident QP kernel once "
+          "and no SPD kernel")
     conv_k, conv_p = sol_k.converged.cpu(), sol_p.converged
     agree = (conv_k == conv_p) & (sol_k.iters.cpu() == sol_p.iters)
     dx = (sol_k.x.cpu() - sol_p.x).abs().amax(dim=-1)[agree]
@@ -664,8 +674,7 @@ def closed_loop(dev, card, build_spd_s):
           f"{'native C++' if native.available() else 'numpy'} generator",
           flush=True)
     ticks = Bs * cycles * int(round(cfg.gait.trot_cycle / cfg.sim.dt))
-    cuda_chol.chol_factor.launches = cuda_chol.chol_sub.launches = 0
-    cuda_riccati.solve_stage_qp_resident.launches = 0
+    zero_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     # sweep.run_batch, its two steps apart: phase 15 holds every leaf of
@@ -675,11 +684,16 @@ def closed_loop(dev, card, build_spd_s):
     res = sweep.result(scn, states_b, metrics_b)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"spd_chol_factor": cuda_chol.chol_factor.launches,
-                "spd_chol_sub": cuda_chol.chol_sub.launches,
-                "resident_ipm": cuda_riccati.solve_stage_qp_resident.launches}
+    launches = read_launches()
     print(f"[loop] run_batch B={Bs}, {cycles} cycles in {wall:.1f} s; "
           f"kernel launches {launches}", flush=True)
+    # a tick: one resident QP launch (the WBC solve) and physics' 4
+    # mass-matrix factors; no n = 30 SPD launch
+    n_ticks = ticks // Bs
+    check(launches["resident_qp"] == n_ticks
+          and launches["spd_chol_factor"] == 4 * n_ticks,
+          f"a tick launched the resident QP kernel once and 4 SPD factors "
+          f"({launches} over {n_ticks} ticks)")
     mpc_conv = float(res.metrics.mpc_converged.float().mean())
     print(f"[loop] fell {int(res.fell.sum())}/{Bs}, goal_dist mean "
           f"{float(res.goal_dist.mean()):.4f} m, slip_frac mean "
@@ -801,7 +815,8 @@ def closed_loop(dev, card, build_spd_s):
     fac, sub = times[("factor", 64, 30, 0)], times[("sub", 64, 30, 1)]
     main_path = dict(cfg=cfg, scn=scn, states=states_b, metrics=metrics_b,
                      wall=wall, profiles=profiles)
-    return main_path, [
+    qp_row = resident_qp_times(dev, card, launches["resident_qp"] // n_ticks)
+    return main_path, [qp_row,
         {"name": "spd_chol_factor", "route": "cuda", "source": src,
          "replaces": "apf_quadruped_tpu/ops/pallas_chol.py:130",
          "launches": launches["spd_chol_factor"], "max_abs_err": err_f,
@@ -812,6 +827,84 @@ def closed_loop(dev, card, build_spd_s):
          "launches": launches["spd_chol_sub"], "max_abs_err": err_s,
          "ms": sub[0], "plain_ms": sub[1], "bound_ms": sub[3][0],
          "bound_by": sub[3][1], "library_ms": sub[2]}]
+
+
+def qp_work(B, n=30, p=30, m=68, iters=15, refine=1):
+    """(bytes, float32 operations) of one solve of B QPs of the resident QP
+    kernel (csrc/resident_qp.cu), every lane running all `iters`
+    iterations (there is no early exit).  A multiply-add counts 2; each
+    input is read once and each output written once.  A factorization
+    pass: the Gram G'WG's lower triangle and W G, H's factor, V = L^-1 A'
+    (p forward substitutions), V'V's lower triangle and S_eq's factor; a
+    KKT solve: two half substitutions with L and V'u, S_eq's two, V dy;
+    each refinement H dx (P, G, W, G'), A'dy, A dx; a Newton step: the
+    right-hand side G'(w rz + rc / s), the KKT solve, ds = -rz - G dx and
+    dz; the residuals: P x, A'y, G'z, A x, G x and the sums."""
+    tri = lambda k: k * (k + 1) // 2                     # noqa: E731
+    chol = lambda k: (k ** 3 - k) / 3 + k * (k - 1) / 2 + 2 * k  # noqa
+    factor = (2 * tri(n) * m + m * n + chol(n) + p * n * n
+              + 2 * tri(p) * n + chol(p))
+    once = 2 * n * n + 4 * n * p + 2 * p * p
+    kkt = (1 + refine) * once + refine * (2 * (2 * m * n) + m + 2 * n * n
+                                          + 2 * (2 * n * p) + n + p)
+    newton = 2 * m * n + 3 * m + kkt + 2 * m * n + 4 * m
+    resid = 2 * n * n + 4 * n * p + 4 * m * n + 6 * m + 2 * (n + p)
+    step = 10 * m + 2 * (n + p)           # step lengths, mu_aff, the update
+    flops = ((iters + 1) * factor + iters * (2 * newton + step)
+             + (iters + 1) * resid + kkt + 2 * m * n)
+    nbytes = 4 * (n * n + n + p * n + 2 * p + m * n + 2 * m   # P .. masks
+                  + n + p + 2 * m + 3) + 1                    # x .. res
+    return float(B * nbytes), float(B * flops)
+
+
+def resident_qp_times(dev, card, per_tick):
+    """Phase 10's row of the resident QP kernel: at B in {1, 64, 1024} on
+    the WBC's QPs (problems.wbc_problem, seed 0, EngineConfig(),
+    SolverConfig(), float32), the device time of one solve (a profiler
+    window of back-to-back calls, and CUDA events over replays of a graph
+    of the call) against the op-by-op chain it replaces (_solve_qp_impl on
+    the card, a graph of it replayed: its SPD kernels and glue), and the
+    kernel's bound (qp_work)."""
+    from apf_quadruped_tpu_torch import _precision, problems, wbc
+    from apf_quadruped_tpu_torch.config import EngineConfig
+    from apf_quadruped_tpu_torch.ops import qpsolve
+
+    cfg = EngineConfig()
+    rows = {}
+    for B in (1, 64, 1024):
+        st, ref = problems.wbc_problem(cfg, B, seed=0, device=dev)
+        with _precision.highest_precision():
+            qp, _ = wbc._build_qp(cfg, st, ref)
+
+        def kern():
+            return qpsolve._solve_qp_eager(qp, cfg.solver)
+
+        def chain():
+            with _precision.highest_precision():
+                return qpsolve._solve_qp_impl(qp, cfg.solver)
+
+        w = window(kern)
+        k_ms = replay_ms(kern)
+        c_ms = replay_ms(chain, reps=10)
+        b = bound(*qp_work(B, iters=cfg.solver.iters,
+                           refine=cfg.solver.refine_steps))
+        rows[B] = (w.ms, k_ms, c_ms, b)
+        print(f"[time] {card}: resident QP B={B}: device time a solve "
+              f"{w.ms:.5f} ms (profiler window, {w.share:.2%} of launches "
+              f"recorded; {', '.join(w.launches)}), {k_ms:.5f} ms (CUDA "
+              f"events, graph replays); the chain it replaces {c_ms:.4f} ms "
+              f"(graph replays), {c_ms / k_ms:.1f}x; bound {b[0]:.6f} ms "
+              f"({b[1]}), {100 * b[0] / k_ms:.2f}% of it; {per_tick} "
+              f"launch a tick or WBC solve", flush=True)
+    k = rows[1024]
+    return {"name": "resident_qp", "route": "cuda",
+            "source": "apf_quadruped_tpu_torch/csrc/resident_qp.cu",
+            "replaces": "apf_quadruped_tpu_torch/ops/qpsolve.py:"
+                        "_solve_qp_impl (apf_quadruped_tpu/ops/qpsolve.py)",
+            "launches": per_tick, "max_abs_err": None,
+            "ms": {B: r[1] for B, r in rows.items()},
+            "plain_ms": {B: r[2] for B, r in rows.items()},
+            "bound_ms": k[3][0], "bound_by": k[3][1], "library_ms": None}
 
 
 def fused_pass_data(rng, dev, B, mask_frac, H=20, nx=13, nu=12, m=24):
@@ -1228,9 +1321,12 @@ def loop_counters():
     """The launch counters of the closed loop's kernels, by record name."""
     from apf_quadruped_tpu_torch.ops import cuda_chol, cuda_riccati
 
+    from apf_quadruped_tpu_torch.ops import cuda_qp
+
     return {"spd_chol_factor": cuda_chol.chol_factor,
             "spd_chol_sub": cuda_chol.chol_sub,
-            "resident_ipm": cuda_riccati.solve_stage_qp_resident}
+            "resident_ipm": cuda_riccati.solve_stage_qp_resident,
+            "resident_qp": cuda_qp.solve_qp_resident}
 
 
 def zero_launches():
@@ -1256,20 +1352,33 @@ def named_leaves(prefix, tree):
 # flag was set in: the WBC's convergence, a foot slipping, an early
 # touch-down latched; leg-ticks per tick
 TICK_SHARES = {"qp_converged": 1, "slip_ticks": 1, "early_td_frac": 4}
+# the twins of the closed-loop goldens (tests/data/_golden.py TWINS and
+# F32_TWINS): the JAX float64 run from a start moved by +-1e-12 rad in q or
+# 1e-14 m in the base position, and the JAX float32 run from a start moved
+# by one float32 ulp
+F64_TWINS = ("f64p", "f64m", "f64b")
+F32_TWINS = ("f32p", "f32m", "f32b")
 
 
 def golden_gate(g, head, trees, skip=(), ticks=None):
     """Hold each leaf of `trees` ({"state": LoopState, "metrics":
     CycleMetrics}) to the JAX package's float32 run, the golden's keys
     "f32.<head><prefix>.<path>", but those in `skip`.  Gate per leaf:
-    |port - JAX f32| <= 5 |JAX f32 - JAX f64| + 1e-4 (1 + |JAX f64|max):
-    the port's float32 and the JAX package's float32 are two float32
-    roundings of one float64 trajectory, and over 200 ticks of stiff
-    penalty contact their spread is the spread between float32 and
-    float64, not float32 epsilon.  An MPC iteration count may flip by one,
-    and with `ticks` (the cycle's ticks; phase 24) a share of ticks by one
-    tick (TICK_SHARES): a tick's flag decided at its threshold, as a WBC
-    solve that converges at its tolerance, is decided by rounding.
+    |port - JAX f32| <= 5 spread + 1e-4 (1 + |JAX f64|max), the spread the
+    largest of the golden's samples of how far the loop carries a
+    rounding: |JAX f32 - JAX f64|, each float64 twin's distance from JAX
+    f64 and each float32 twin's from JAX f32 (tests/data/_golden.py
+    TWINS and F32_TWINS, where the golden has them).  The port's float32
+    and the JAX package's float32 are two float32 roundings of one float64
+    trajectory, and over 200 ticks of stiff penalty contact their spread
+    is the spread between float32 and float64, not float32 epsilon; where
+    the loop turns chaotic, or meets a branch that a rounding decides,
+    that one sample is no bound, and the twins (the start moved by 1e-12
+    rad in float64, by one ulp in float32) may lie farther apart.  An MPC
+    iteration count may flip by one, and with `ticks` (the cycle's ticks;
+    phase 24) a share of ticks by one tick (TICK_SHARES), counted in
+    whole ticks: a tick's flag decided at its threshold, as a WBC solve
+    that converges at its tolerance, is decided by rounding.
     Returns the worst (diff / gate, key)."""
     from apf_quadruped_tpu_torch import convert
 
@@ -1286,13 +1395,20 @@ def golden_gate(g, head, trees, skip=(), ticks=None):
             ref32 = g[key].astype(np.float64)
             ref64 = g["f64" + key[3:]].astype(np.float64)
             diff = float(np.abs(port - ref32).max())
-            gate = (5.0 * float(np.abs(ref32 - ref64).max())
-                    + 1e-4 * (1.0 + float(np.abs(ref64).max())))
+            spread = max([float(np.abs(ref32 - ref64).max())]
+                         + [float(np.abs(g[t + key[3:]] - ref).max())
+                            for ts, ref in ((F64_TWINS, ref64),
+                                            (F32_TWINS, ref32))
+                            for t in ts if t + key[3:] in g])
+            gate = 5.0 * spread + 1e-4 * (1.0 + float(np.abs(ref64).max()))
             if g[key].dtype.kind in "iu":
                 gate = max(gate, 1.0)     # an MPC iteration count may flip
             share = TICK_SHARES.get(key.rsplit(".", 1)[1])
             if ticks and prefix == "metrics" and share:
-                gate = max(gate, 1.0 / (share * ticks))
+                # in whole ticks: a float32 share is a tick count rounded
+                unit = 1.0 / (share * ticks)
+                diff = round(diff / unit) * unit
+                gate = max(gate, unit)
             worst = max(worst, (diff / gate, key))
             check(diff <= gate, f"{key}: port vs JAX float32 {diff:.3g} "
                   f"> gate {gate:.3g}")
@@ -2420,7 +2536,7 @@ def wbc_latency(dev, card):
     from apf_quadruped_tpu_torch import problems, wbc
     from apf_quadruped_tpu_torch.config import EngineConfig, SolverConfig
     from apf_quadruped_tpu_torch.models import rbd
-    from apf_quadruped_tpu_torch.ops import cuda_chol, qpsolve
+    from apf_quadruped_tpu_torch.ops import cuda_chol, cuda_qp, qpsolve
     from apf_quadruped_tpu_torch.runtime import graph
     from apf_quadruped_tpu_torch.sim import physics
 
@@ -2462,10 +2578,15 @@ def wbc_latency(dev, card):
         and bool((out.sol.x[1] == 0).all())
         and bool(torch.isfinite(out.sol.x).all())
         and bool(torch.isfinite(torch.cat([out.tau[:1], out.tau[2:]])).all()))
-    counters = (cuda_chol.chol_factor, cuda_chol.chol_sub)
+    counters = (cuda_chol.chol_factor, cuda_chol.chol_sub,
+                cuda_qp.solve_qp_resident)
 
     def counts():
         return tuple(f.launches for f in counters)
+
+    def entry_counts(entry):
+        return tuple(entry.launches[graph._counters().index(f)]
+                     for f in counters)
 
     n0 = counts()
     wbc._solve_eager(cfg, st, ref)
@@ -2475,15 +2596,17 @@ def wbc_latency(dev, card):
         n0 = counts()
         wbc.solve(cfg, st, ref)
         replays.append(tuple(b - a for a, b in zip(n0, counts())))
-    same["counters: a replay adds an eager call's launches"] = (
-        all(r == eager_n for r in replays)
-        and wbc_entry(64).launches[:2] == eager_n)
+    same["counters: a replay adds an eager call's launches, one resident "
+         "QP launch and no SPD launch"] = (
+        all(r == eager_n for r in replays) and eager_n == (0, 0, 1)
+        and entry_counts(wbc_entry(64)) == eager_n)
     print(f"[wbc graph] graphed wbc.solve and solve_qp against their eager "
           f"bodies, every output bit for bit (EngineConfig(), "
           f"SolverConfig(), float32, problems.wbc_problem; captured on one "
           f"draw, replayed on another): {json.dumps(same)}; {n_graphs} "
-          f"graphs cached; an eager call launches {eager_n[0]} SPD factors "
-          f"and {eager_n[1]} substitutions, a replay adds {replays[0]} "
+          f"graphs cached; an eager call launches {eager_n[0]} SPD factors, "
+          f"{eager_n[1]} substitutions and {eager_n[2]} resident QP "
+          f"kernels, a replay adds {replays[0]} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     check(all(same.values()), "the graphed wbc.solve and solve_qp equal "
           "their eager bodies bit for bit")
@@ -2496,9 +2619,9 @@ def wbc_latency(dev, card):
                "graphed": lambda: wbc.solve(cfg, st, ref)}
         lat = {"eager": [], "graphed": []}
         enqueue = {"eager": [], "graphed": []}
-        # the eager side's blocks are a quarter of the graphed side's: it
-        # takes 60-120 ms a call, and the graphed p99 is what the phase
-        # reports
+        # the eager side's blocks are a quarter of the graphed side's: its
+        # call launches the build's ~785 kernels one by one, and the
+        # graphed p99 is what the phase reports
         rounds = 3 if B == 1 else 1
         block = {"eager": 25, "graphed": 100}
         for _ in range(rounds):
@@ -3082,7 +3205,7 @@ def main():
         return time.perf_counter() - t
 
     t0 = time.perf_counter()
-    libs = ("resident_ipm", "spd_chol", "fused_riccati")
+    libs = ("resident_ipm", "spd_chol", "fused_riccati", "resident_qp")
     with ThreadPoolExecutor(len(libs)) as pool:
         builds = {name: pool.submit(timed, getattr(_kernels, name))
                   for name in libs}

@@ -5,7 +5,8 @@ float64 and a float32 process of the JAX package on the CPU.
 
 Each generator defines `run(dtype_name, path)`, which writes the runs of
 one dtype ("f64": the reference and its three twins; "f32": float32,
-without jax_enable_x64) to `path`, and calls `main(OUT, __file__, run)`.
+without jax_enable_x64, and its three twins) to `path`, and calls
+`main(OUT, __file__, run)`.
 """
 
 import subprocess
@@ -21,6 +22,13 @@ import numpy as np
 # rounding, the spread the port's float64 run is held within
 TWINS = {"f64p": ("q", 1e-12), "f64m": ("q", -1e-12),
          "f64b": ("p_base", 1e-14)}
+# the float32 twins: the float32 run from a start whose joint angles q are
+# moved by one float32 rounding (one ulp, up or down), or its base position
+# by one ulp up.  Their distances from the float32 run are how far the loop
+# carries one float32 rounding: samples of the spread between two float32
+# routes that sum in different orders, which chip_smoke.py's golden_gate
+# allows the port's float32 run
+F32_TWINS = {"f32p": ("q", 1), "f32m": ("q", -1), "f32b": ("p_base", 1)}
 ROOT = Path(__file__).resolve().parents[2]
 # the repository root, so that the generators find the JAX package
 sys.path.insert(0, str(ROOT))
@@ -43,7 +51,8 @@ def leaves(prefix, tree, batch_axis=False):
 
 def runs_of(dtype_name):
     """The run names one process writes."""
-    return ("f64",) + tuple(TWINS) if dtype_name == "f64" else ("f32",)
+    return (("f64",) + tuple(TWINS) if dtype_name == "f64"
+            else ("f32",) + tuple(F32_TWINS))
 
 
 def jax_dtype(dtype_name):
@@ -59,6 +68,13 @@ def jax_dtype(dtype_name):
 
 def moved(st, name):
     """LoopState `st` with the start of run `name` (a twin's moved leaf)."""
+    if name in F32_TWINS:
+        import jax.numpy as jnp
+
+        leaf, sign = F32_TWINS[name]
+        v = getattr(st.sim, leaf)
+        return st._replace(sim=st.sim._replace(
+            **{leaf: jnp.nextafter(v, v + sign * jnp.inf)}))
     if name not in TWINS:
         return st
     leaf, dx = TWINS[name]

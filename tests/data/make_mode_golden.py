@@ -36,7 +36,12 @@ the cycle ("<run>.<case>.c<k>.state.<path>") and the cycle's CycleMetrics
           chaotic (pace's second cycle, where the WBC converges on ~60% of
           the ticks), one sample is no bound: the three twins' distances
           from f64 differ by up to 10x in a leaf;
-    f32   float32, in its own process without jax_enable_x64.
+    f32   float32, in its own process without jax_enable_x64;
+    f32p, f32m, f32b  the float32 run from q moved by one float32 ulp up
+          and down and from the base position moved by one ulp
+          (tests/data/_golden.py F32_TWINS): how far the loop carries one
+          float32 rounding, the spread chip_smoke.py allows the port's
+          float32 run beside 5x the float32 run's distance from f64.
 
 Run from the repository root (about 4.5 minutes on the CPU: each mode's
 cycle compiles once a process; the file is about 1 MB):
@@ -53,13 +58,11 @@ import numpy as np
 
 CASES = {"trot": 3, "crawl": 1, "pace": 2, "adaptive": 2}
 B, SEED = 2, 0
-# the float64 twins: the start's joint angles q moved by +-1e-12 rad, its
-# base position by 1e-14 m
-TWINS = {"f64p": ("q", 1e-12), "f64m": ("q", -1e-12),
-         "f64b": ("p_base", 1e-14)}
 OUT = Path(__file__).resolve().parent / "mode_golden.npz"
 # the repository root, so that the command below finds the JAX package
 sys.path.insert(0, str(OUT.parents[2]))
+
+import _golden  # noqa: E402  (the twins: _golden.TWINS, F32_TWINS)
 
 
 def _leaves(prefix, tree):
@@ -85,7 +88,6 @@ def run(dtype_name: str, path: str):
     from apf_quadruped_tpu.runtime import sweep
 
     dtype = jnp.float64 if dtype_name == "f64" else jnp.float32
-    runs = ("f64",) + tuple(TWINS) if dtype_name == "f64" else ("f32",)
     data = {}
     for case, cycles in CASES.items():
         cfg = _cfg(Namespace(iters=15, robot="dogbot", gait=case, sqp=1))
@@ -96,12 +98,8 @@ def run(dtype_name: str, path: str):
             for k, v in scn_np.items():
                 np.testing.assert_array_equal(v, data[k], err_msg=k)
         data.update(scn_np)
-        for name in runs:
-            st = sweep.init_batch(cfg, scn)
-            if name in TWINS:
-                leaf, dx = TWINS[name]
-                st = st._replace(sim=st.sim._replace(
-                    **{leaf: getattr(st.sim, leaf) + dx}))
+        for name in _golden.runs_of(dtype_name):
+            st = _golden.moved(sweep.init_batch(cfg, scn), name)
             for k in range(cycles):
                 st, m = sweep.step_batch(cfg, scn, st, 1)
                 data.update(_leaves(f"{name}.{case}.c{k}.state", st))

@@ -44,7 +44,8 @@ float32), each case's changed field ("case.<case>.<section>.<field>",
 its value), and per run, case and cycle k the LoopState after the
 cycle ("<run>.<case>.c<k>.state.<path>") and the cycle's CycleMetrics
 ("<run>.<case>.c<k>.metrics.<field>", (B, 1, ...)).  The runs: f64, its
-twins f64p / f64m / f64b (tests/data/_golden.py) and f32.
+twins f64p / f64m / f64b, f32 and its twins f32p / f32m / f32b
+(tests/data/_golden.py).
 
 Run from the repository root (about 6.5 minutes on the CPU, two
 processes: each case compiles its cycle once a process; the file is about

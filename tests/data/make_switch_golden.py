@@ -45,7 +45,8 @@ cast to float32), the start's crawling flags ("init.crawling"), and per
 run and cycle k the LoopState after the cycle
 ("<run>.switch.c<k>.state.<path>") and the cycle's CycleMetrics
 ("<run>.switch.c<k>.metrics.<field>", (B, 1, ...)).  The runs: f64, its
-twins f64p / f64m / f64b (tests/data/_golden.py) and f32.
+twins f64p / f64m / f64b, f32 and its twins f32p / f32m / f32b
+(tests/data/_golden.py).
 
 Run from the repository root (about 1 minute on the CPU, two processes;
 the file is about 0.5 MB):

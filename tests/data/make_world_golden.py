@@ -26,8 +26,8 @@ Stored per run and world, with a leading batch axis of 1 as the port's
 batched loop gives them: the LoopState after cycle k
 ("<run>.<world>.c<k>.state.<path>") and the cycle's CycleMetrics
 ("<run>.<world>.c<k>.metrics.<field>", (1, 1, ...)), and the spawn
-("spawn.<world>").  The runs: f64, its twins f64p / f64m / f64b
-(tests/data/_golden.py) and f32.
+("spawn.<world>").  The runs: f64, its twins f64p / f64m / f64b, f32
+and its twins f32p / f32m / f32b (tests/data/_golden.py).
 
 Run from the repository root (about 1 minute on the CPU, two processes;
 the file is about 0.5 MB):

@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain versions, on the card: the
 resident IPM (csrc/resident_ipm.cu), the SPD factor / substitution /
-factor-and-solve (csrc/spd_chol.cu) and the fused Riccati passes
-(csrc/fused_riccati.cu); the closed loop's tick replayed from a
+factor-and-solve (csrc/spd_chol.cu), the fused Riccati passes
+(csrc/fused_riccati.cu) and the resident WBC QP (csrc/resident_qp.cu,
+held to float64 against the op-by-op chain's own float32 gap); the
+closed loop's tick replayed from a
 captured CUDA graph (runtime/graph.py) against the eager tick; and
 planner.plan and the cycle's head replayed from their graphs against
 their eager bodies; wbc.solve and solve_qp replayed from theirs against
@@ -262,7 +264,14 @@ def test_plan_auto_runs_the_kernel(dev):
 # ---------------------------------------------------------------------------
 
 from apf_quadruped_tpu_torch.ops import chol, cuda_chol  # noqa: E402
-from apf_quadruped_tpu_torch.ops import qpsolve  # noqa: E402
+from apf_quadruped_tpu_torch.ops import cuda_qp, qpsolve  # noqa: E402
+
+
+def _qp_counts():
+    """The launch counters of the SPD kernels and the resident QP kernel."""
+    return np.array([f.launches for f in (
+        cuda_chol.chol_factor, cuda_chol.chol_sub, cuda_chol.chol_solve,
+        cuda_qp.solve_qp_resident)])
 
 
 def _spd(rng, B, n, dev):
@@ -431,8 +440,9 @@ def test_spd_kernels_reject_what_they_do_not_take(rng, dev):
 
 
 def test_solve_qp_kernel_route(rng, dev):
-    """solve_qp on CUDA tensors goes through the SPD kernels and agrees with
-    the plain route (CPU tensors) on WBC-shaped QPs."""
+    """solve_qp on CUDA tensors at the WBC's sizes is one launch of the
+    resident QP kernel (no SPD kernel) and agrees with the plain route (CPU
+    tensors) on WBC-shaped QPs."""
     B, n, m, p = 64, 30, 68, 30
     M = rng.normal(size=(B, n, n))
     G = rng.normal(size=(B, m, n))
@@ -446,9 +456,9 @@ def test_solve_qp_kernel_route(rng, dev):
                 eq_mask=np.repeat([[1.0] * 18 + [0.0] * 12], B, axis=0),
                 ineq_mask=np.ones((B, m)))
     data = {k: v.astype(np.float32) for k, v in data.items()}
-    before = cuda_chol.chol_sub.launches
+    before = _qp_counts()
     sol = qpsolve.solve_qp(convert.qp_data(data, dev), SolverConfig())
-    assert cuda_chol.chol_sub.launches > before
+    assert tuple(_qp_counts() - before) == (0, 0, 0, 1)
     ref = qpsolve.solve_qp(convert.qp_data(data, "cpu"), SolverConfig())
     agree = ((sol.converged.cpu() == ref.converged)
              & (sol.iters.cpu() == ref.iters))
@@ -456,6 +466,257 @@ def test_solve_qp_kernel_route(rng, dev):
     assert bool(ref.converged.all())
     dx = (sol.x.cpu() - ref.x).abs().amax(dim=-1)[agree]
     assert float(dx.max()) <= 1e-3 * (1.0 + float(ref.x.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# the resident QP kernel (csrc/resident_qp.cu via ops/cuda_qp.py) against
+# float64 and against the chain it replaces (_solve_qp_impl on the card)
+# ---------------------------------------------------------------------------
+
+# The kernel's distance from the float64 solve, per lane and output (the
+# largest entry's, over 1 + the float64 answer's largest entry), against
+# the chain route's own float32 distance on the same lanes (those where
+# both stop at float64's iteration): at each quantile below, at most QP_GAP
+# times the chain's plus 1e-6.  The two routes sum in other orders, so on
+# the ill-conditioned QPs either may land nearer float64 on a given lane;
+# a batch's worst lanes (one in a hundred at B = 64) are a draw of those
+# and are left out.
+QP_GAP = 4.0
+QP_QUANTILES = {1: (0.5,), 64: (0.5, 0.9), 1024: (0.5, 0.9, 0.99)}
+# Every lane, the worst too: the kernel's x, y, z and s put into the QP as
+# it was given (P, A, G, q, b, h and the masks, in float64) leave residuals
+# within QP_GAP of the larger of the kernel's own residual and the chain's
+# on that lane (and 1e-5: float32's rounding of the products), and s'z / m
+# within 1e-5 (1 + gap) of the gap the kernel reports.  A lane that solved
+# some other QP (a fault in its staging or indexing) reports its own QP's
+# small residuals; the QP it was given shows them large.
+QP_FLOOR = 1e-5
+# a lane whose iteration count or flag differs from float64's stops where
+# the chain's float32 run stops, or is at the tolerance margin: at the
+# earlier stop, float64's or the kernel's own max(res / reltol,
+# gap / abstol) lies within this factor of 1 (float32's residual floor can
+# hold a lane an iteration past float64's stop)
+QP_MARGIN = 4.0
+
+
+def _wbc_qp_case(case, B, dev, seed=0):
+    """(SolverConfig, the WBC's QP in float32 on the card): "trot" the
+    latency benchmark's states (problems.wbc_problem: all four feet in
+    contact); "crawl" one foot in swing and the crawl weight, its pyramid
+    rows masked; "anymal" the zoo quadruped's WBC, trotting on the
+    diagonal pair."""
+    from apf_quadruped_tpu_torch import wbc
+    from apf_quadruped_tpu_torch.models import zoo
+    cfg = (zoo.engine_config_for("anymal") if case == "anymal"
+           else EngineConfig(wbc=WbcConfig(slack_weight_trot=1e6)))
+    st, ref = problems.wbc_problem(cfg, B, seed=seed, device=dev)
+    gen = torch.Generator(dev).manual_seed(seed)
+    if case == "crawl":
+        st = st._replace(contact=torch.tensor([1.0, 1.0, 0.0, 1.0],
+                                              device=dev).expand(B, 4),
+                         crawl=torch.ones(B, dtype=torch.bool, device=dev))
+    elif case == "anymal":
+        st = st._replace(contact=torch.tensor([1.0, 0.0, 0.0, 1.0],
+                                              device=dev).expand(B, 4))
+    ref = ref._replace(
+        com_pos=ref.com_pos + torch.tensor([0.0, 0.02, -0.03], device=dev),
+        com_vel=torch.randn(B, 3, generator=gen, device=dev) * 0.1,
+        swing_pos=torch.randn(B, 4, 3, generator=gen, device=dev) * 0.02)
+    from apf_quadruped_tpu_torch._precision import highest_precision
+    with highest_precision():
+        qp, _ = wbc._build_qp(cfg, st, ref)
+    return cfg.solver, qp
+
+
+def _chain(qp, cfg):
+    """The op-by-op route on the card (the SPD kernels and the glue)."""
+    from apf_quadruped_tpu_torch._precision import highest_precision
+    with highest_precision():
+        return qpsolve._solve_qp_impl(qp, cfg)
+
+
+def _stop_margin(qp, cfg, lanes, stops, solve):
+    """max(res / reltol, gap / abstol) of each lane in `lanes` of `qp`
+    after its iteration `stops` (the earlier of two stops), solved by
+    `solve`."""
+    import dataclasses
+    out = []
+    for lane, k in zip(lanes, stops):
+        one = qpsolve.QPData(*(v[lane:lane + 1] for v in qp))
+        r = solve(one, dataclasses.replace(cfg, iters=k))
+        out.append(max(float(r.res_norm[0]) / cfg.reltol,
+                       float(r.gap[0]) / cfg.abstol))
+    return out
+
+
+def _given_residuals(qp64, s):
+    """(res_norm, s'z / m) of solution `s` put into the float64 QP `qp64` as
+    it was given, as _solve_qp_impl measures them."""
+    q = qpsolve._apply_masks(qp64)
+    x, y, z, sl = (getattr(s, f).double().cpu() for f in ("x", "y", "z", "s"))
+    rx = (q.P @ x[..., None])[..., 0] + q.q + (y[..., None, :] @ q.A)[..., 0, :] \
+        + (z[..., None, :] @ q.G)[..., 0, :]
+    ry = (q.A @ x[..., None])[..., 0] - q.b
+    rz = (q.G @ x[..., None])[..., 0] + sl - q.h
+
+    def rel(r, v):
+        return r.norm(dim=-1) / (1.0 + v.norm(dim=-1))
+    res = torch.maximum(rel(rx, q.q), torch.maximum(rel(ry, q.b),
+                                                    rel(rz, q.h)))
+    m = torch.clamp(q.ineq_mask.sum(-1), min=1.0)
+    return res, (sl * z * q.ineq_mask).sum(-1) / m
+
+
+def _hold_to_float64(sol, qp, cfg, what):
+    """The kernel's solution held to float64 against the chain's float32
+    gap (QP_GAP at QP_QUANTILES), every lane's residuals in the QP as given
+    against its own and the chain's (QP_GAP, QP_FLOOR), and its iterations
+    and flags to float64's but at the margin (QP_MARGIN), no more such
+    lanes than twice the chain's and 2% of the batch; returns the lanes at
+    the margin."""
+    qp64 = qpsolve.QPData(*(v.double().cpu() for v in qp))
+    r = qpsolve._solve_qp_impl(qp64, cfg)
+    c = _chain(qp, cfg)
+    res_k, mu_k = _given_residuals(qp64, sol)
+    res_c, _ = _given_residuals(qp64, c)
+    own = sol.res_norm.double().cpu()
+    bound = QP_GAP * torch.maximum(torch.maximum(own, res_c),
+                                   torch.full_like(own, QP_FLOOR))
+    gap = sol.gap.double().cpu()
+    far = ((res_k > bound)
+           | ((mu_k - gap).abs() > QP_FLOOR * (1.0 + gap))).nonzero()[:, 0]
+    assert len(far) == 0, (what, [
+        (int(b), float(res_k[b]), float(own[b]), float(res_c[b]),
+         float(mu_k[b]), float(gap[b])) for b in far])
+    k_it, c_it = sol.iters.cpu(), c.iters.cpu()
+    both = (k_it == r.iters) & (c_it == r.iters)
+    B = qp.q.shape[0]
+    for f in ("x", "y", "z", "s"):
+        ref = getattr(r, f)
+        scale = 1.0 + ref.abs().amax(-1)
+        dk = ((getattr(sol, f).double().cpu() - ref).abs().amax(-1)
+              / scale)[both]
+        dc = ((getattr(c, f).double().cpu() - ref).abs().amax(-1)
+              / scale)[both]
+        if len(dk) == 0:
+            continue
+        for q in QP_QUANTILES[B]:
+            gk, gc = float(torch.quantile(dk, q)), float(torch.quantile(dc, q))
+            assert gk <= QP_GAP * gc + 1e-6, (what, f, q, gk, gc)
+
+    def off(s):
+        return (s.iters.cpu() != r.iters) | (s.converged.cpu() != r.converged)
+
+    lanes = off(sol).nonzero()[:, 0]
+    stops = torch.minimum(k_it, r.iters)[lanes].tolist()
+    m64 = _stop_margin(qp64, cfg, lanes.tolist(), stops,
+                       qpsolve._solve_qp_impl)
+    mk = _stop_margin(qp, cfg, lanes.tolist(), stops,
+                      qpsolve._solve_qp_eager)
+    for lane, k, a, b in zip(lanes.tolist(), stops, m64, mk):
+        as_chain = (k_it[lane] == c_it[lane]
+                    and sol.converged[lane].cpu() == c.converged[lane].cpu())
+        print(f"{what}: lane {lane} stops at {int(k_it[lane])} (float64 "
+              f"{int(r.iters[lane])}, chain {int(c_it[lane])}); the margin "
+              f"at {k}: float64 {a:.3f}, kernel {b:.3f}")
+        assert bool(as_chain) or any(1.0 / QP_MARGIN <= v <= QP_MARGIN
+                                     for v in (a, b)), (what, lane, a, b)
+    n_chain = int(off(c).sum())
+    assert len(lanes) <= 2 * n_chain + max(2, 0.02 * B), (what, len(lanes),
+                                                          n_chain)
+    return lanes.tolist()
+
+
+@pytest.mark.parametrize("B", [1, 64, 1024])
+@pytest.mark.parametrize("case", ["trot", "crawl", "anymal"])
+def test_resident_qp_holds_to_float64(dev, case, B):
+    """The kernel's x, y, z and s lie as near the float64 solve as the
+    chain's float32 answer (QP_GAP at QP_QUANTILES), on the WBC's QPs: trot
+    (all four feet in contact), crawl (a swing foot's rows masked) and a zoo
+    quadruped; iterations and flags agree with float64's but at the margin,
+    those lanes listed."""
+    cfg, qp = _wbc_qp_case(case, B, dev)
+    before = _qp_counts()
+    sol = qpsolve._solve_qp_eager(qp, cfg)
+    assert tuple(_qp_counts() - before) == (0, 0, 0, 1)
+    assert bool(torch.isfinite(sol.x).all()) and sol.iters.dtype == torch.int32
+    _hold_to_float64(sol, qp, cfg, f"{case} B={B}")
+
+
+@pytest.mark.parametrize("kind", ["no equality rows", "small", "m odd"])
+def test_resident_qp_padded_sizes(rng, dev, kind):
+    """Sizes under the compiled widths (zero-padded to them by the wrapper
+    before the kernel stages them): a make_qp QP with one masked equality
+    row, n = 5, p = 2, m = 7, and m odd; held to float64 as the WBC's
+    QPs."""
+    B = 64
+    if kind == "no equality rows":
+        qp = _free_qp(rng, B, dev)
+    else:
+        n, p, m = (5, 2, 7) if kind == "small" else (30, 12, 67)
+        M = rng.normal(size=(B, n, n))
+        G = rng.normal(size=(B, m, n))
+        x0 = rng.normal(size=(B, n)) * 0.1
+        A = rng.normal(size=(B, p, n))
+        qp = qpsolve.make_qp(*(torch.as_tensor(v, dtype=torch.float32,
+                                               device=dev) for v in (
+            np.einsum("bij,bkj->bik", M, M) / n + np.eye(n),
+            rng.normal(size=(B, n)), G,
+            np.einsum("bmn,bn->bm", G, x0) + rng.uniform(0.1, 1.0, (B, m)),
+            A, np.einsum("bpn,bn->bp", A, x0))))
+    assert cuda_qp.takes(qp)
+    cfg = SolverConfig()
+    _hold_to_float64(qpsolve._solve_qp_eager(qp, cfg), qp, cfg, kind)
+
+
+def test_resident_qp_layouts_are_bit_for_bit(dev):
+    """One lane's answer is the same bits whatever else is in the batch and
+    however the inputs lie: a batch of 2 x 32 against its flat 64, a lane
+    alone, and inputs 4 bytes off their alignment (which the wrapper
+    copies into an aligned buffer for the kernel's 16-byte cp.async)."""
+    cfg, qp = _wbc_qp_case("crawl", 64, dev)
+    flat = qpsolve._solve_qp_eager(qp, cfg)
+    two = qpsolve._solve_qp_eager(
+        qpsolve.QPData(*(v.reshape((2, 32) + v.shape[1:]) for v in qp)), cfg)
+    for a, b in zip(flat, two):
+        assert torch.equal(a, b.reshape(a.shape))
+    one = qpsolve._solve_qp_eager(qpsolve.QPData(*(v[5] for v in qp)), cfg)
+    for a, b in zip(flat, one):
+        assert torch.equal(a[5], b)
+
+    def shifted(v):
+        buf = torch.empty(v.numel() + 1, dtype=v.dtype, device=dev)
+        out = buf[1:].view(v.shape)
+        out.copy_(v)
+        return out
+    odd = qpsolve.QPData(*(shifted(v) for v in qp))
+    assert odd.P.data_ptr() % 16 != 0
+    for a, b in zip(flat, qpsolve._solve_qp_eager(odd, cfg)):
+        assert torch.equal(a, b)
+
+
+def test_resident_qp_quarantines_bad_lanes(dev):
+    """A lane whose H is not positive definite and a lane with a NaN in q
+    come back zero, unconverged, their gap and residual inf, as the chain
+    returns them; the other lanes are the bits of the batch without them."""
+    cfg, qp = _wbc_qp_case("trot", 8, dev, seed=1)
+    P = qp.P.clone()
+    P[2] = -1e6 * torch.eye(30, device=dev)
+    q = qp.q.clone()
+    q[5, 0] = float("nan")
+    bad = qp._replace(P=P, q=q)
+    sol = qpsolve._solve_qp_eager(bad, cfg)
+    ref = _chain(bad, cfg)
+    good = qpsolve._solve_qp_eager(qp, cfg)
+    for lane in (2, 5):
+        assert not bool(sol.converged[lane]) and not bool(ref.converged[lane])
+        for f in ("x", "y", "z", "s"):
+            assert bool((getattr(sol, f)[lane] == 0).all()), (lane, f)
+            assert bool((getattr(ref, f)[lane] == 0).all()), (lane, f)
+        assert float(sol.gap[lane]) == float(ref.gap[lane]) == float("inf")
+    rest = [0, 1, 3, 4, 6, 7]
+    for a, b in zip(sol, good):
+        assert torch.equal(a[rest], b[rest])
 
 
 def test_closed_loop_runs_through_the_kernels(dev):
@@ -470,16 +731,20 @@ def test_closed_loop_runs_through_the_kernels(dev):
                                  device=dev)
     graph.clear()
     before = (cuda_chol.chol_factor.launches, cuda_chol.chol_sub.launches,
-              cuda_riccati.solve_stage_qp_resident.launches)
+              cuda_riccati.solve_stage_qp_resident.launches,
+              cuda_qp.solve_qp_resident.launches)
     res = sweep.run_batch(cfg, scn, 1)
     after = (cuda_chol.chol_factor.launches, cuda_chol.chol_sub.launches,
-             cuda_riccati.solve_stage_qp_resident.launches)
-    # per tick: 2 + 2 x 15 WBC factors and 4 mass-matrix factors
-    assert after[0] - before[0] == 20 * (2 + 2 * 15 + 4)
+             cuda_riccati.solve_stage_qp_resident.launches,
+             cuda_qp.solve_qp_resident.launches)
+    # per tick: the 4 mass-matrix factors and solves of physics' substeps,
+    # and one resident QP launch, the whole WBC solve (no n = 30 factor)
+    assert after[0] - before[0] == 20 * 4
     (entry,) = _ticks()
-    assert entry.launches[0] == 2 + 2 * 15 + 4
+    assert entry.launches[0] == 4 and entry.launches[1] == 4
+    assert entry.launches[-1] == 1
     assert after[1] - before[1] == 20 * entry.launches[1]
-    assert after[1] > before[1] and after[2] == before[2] + 1
+    assert after[2] == before[2] + 1 and after[3] - before[3] == 20
     # the cycle's head (its graph holds the plan): one resident launch;
     # its tail none
     from apf_quadruped_tpu_torch.runtime import loop
@@ -1613,13 +1878,13 @@ def test_graphed_wbc_quarantines_a_nan_lane(dev):
 
 @pytest.mark.parametrize("fn", ["wbc.solve", "solve_qp"])
 def test_graphed_wbc_counts_one_calls_launches(dev, fn):
-    """The counters advance by an eager call's SPD launches (32 factors:
-    2 + 2 x 15 iterations) at the capturing call and at each replay."""
+    """The counters advance by an eager call's launches (one resident QP
+    launch, no SPD kernel) at the capturing call and at each replay."""
     from apf_quadruped_tpu_torch import wbc
     from apf_quadruped_tpu_torch.ops import cuda_chol, qpsolve
     from apf_quadruped_tpu_torch.runtime import graph
     counters = (cuda_chol.chol_factor, cuda_chol.chol_sub,
-                cuda_chol.chol_solve)
+                cuda_chol.chol_solve, cuda_qp.solve_qp_resident)
 
     def counts():
         return np.array([f.launches for f in counters])
@@ -1634,8 +1899,7 @@ def test_graphed_wbc_counts_one_calls_launches(dev, fn):
     n0 = counts()
     eager()
     one = counts() - n0
-    assert one[0] == 2 + 2 * cfg.solver.iters and one[1] > 0
-    assert one[2] == 0
+    assert tuple(one) == (0, 0, 0, 1)
     graph.clear()
     for _ in range(3):
         n0 = counts()
@@ -1700,7 +1964,8 @@ def test_graphed_sweep_holds_no_wbc_graph(dev):
         loop._scan_ticks_eager(cfg, seen["cyc"], seen["carry"], 1)
     one = tuple(b - a for a, b in zip(n0, graph._counts()))
     assert entry.launches == one
-    assert entry.launches[0] == 2 + 2 * 15 + 4
+    # physics' 4 mass-matrix factors and the WBC's one resident QP launch
+    assert entry.launches[0] == 4 and entry.launches[-1] == 1
     assert len(graph.entries()) == 3
     assert bool(torch.isfinite(res.final_com).all())
     graph.clear()

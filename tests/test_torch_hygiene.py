@@ -48,6 +48,7 @@ SLICE = ["apf_quadruped_tpu_torch", "apf_quadruped_tpu_torch.config",
          "apf_quadruped_tpu_torch.convert", "apf_quadruped_tpu_torch.problems",
          "apf_quadruped_tpu_torch.ops.chol",
          "apf_quadruped_tpu_torch.ops.cuda_chol",
+         "apf_quadruped_tpu_torch.ops.cuda_qp",
          "apf_quadruped_tpu_torch.models.kinematics",
          "apf_quadruped_tpu_torch.models.rbd",
          "apf_quadruped_tpu_torch.wbc", "apf_quadruped_tpu_torch.swing",

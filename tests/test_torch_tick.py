@@ -22,7 +22,7 @@ import torch
 from apf_quadruped_tpu_torch.config import (EngineConfig, GaitConfig,
                                             MpcConfig, SimConfig,
                                             SolverConfig, WbcConfig)
-from apf_quadruped_tpu_torch.ops import cuda_chol, cuda_riccati
+from apf_quadruped_tpu_torch.ops import cuda_chol, cuda_qp, cuda_riccati
 from apf_quadruped_tpu_torch.runtime import graph, loop
 from apf_quadruped_tpu_torch.sim import disturbance, terrain
 
@@ -219,6 +219,6 @@ def test_signature_tells_layouts_apart():
 def test_graph_counts_every_kernel_wrapper():
     """A replay adds each kernel's launches to its wrapper's counter:
     graph._counters holds every wrapper that counts."""
-    counted = {f for mod in (cuda_chol, cuda_riccati)
+    counted = {f for mod in (cuda_chol, cuda_qp, cuda_riccati)
                for f in vars(mod).values() if hasattr(f, "launches")}
     assert set(graph._counters()) == counted
