@@ -13,6 +13,10 @@ s per knot; the lane's status).
 
 import numpy as np
 
+# the kernel's name, as portbench/trace.py's `seconds_of` matches it (the
+# bf16 instance's too; not the WBC's resident_ipm_qp_kernel)
+KERNEL = "resident_ipm_kernel"
+
 
 def knot_flops(nx: int, nu: int, m: int) -> tuple[int, int, int]:
     """float32 operations (a multiply-add counts 2) of one knot of each

@@ -5,7 +5,8 @@
     drawn from the rng in its order;
   * `plan_problems`: `apf_quadruped_tpu_torch.problems.bench_problem`, the
     planner problem of bench.py (DogBot standing in a trot schedule, a 6 cm
-    CoM step, seeded noise);
+    CoM step, seeded noise), with the contact schedule open: its gait
+    flags dealt evenly over the lanes (bench.py's flag 1 by default);
   * `wbc_states`: `apf_quadruped_tpu_torch.problems.wbc_problem`, the WBC
     latency benchmark's states (the standing spawn jittered, four feet
     down).
@@ -56,10 +57,17 @@ def scenarios(cfg, n: int, gen: np.random.Generator, n_patches: int,
             "spawn_yaw": np.zeros(n, F32)}
 
 
-def plan_problems(cfg, B: int, gen: np.random.Generator) -> dict:
+def plan_problems(cfg, B: int, gen: np.random.Generator,
+                  gait_flags=(1,)) -> dict:
     """(state0 and MpcRefs fields) of bench.py's planner problem at batch
     B: x0 (B, 13), contacts (B, H, 4), feet_w (B, H, 4, 3), x_ref
-    (B, H, 13), yaw_ref (B,)."""
+    (B, H, 13), yaw_ref (B,).
+
+    Each lane's contact schedule is one of `gait_flags` over a cycle of
+    the horizon (H dt), every flag on an equal share of the lanes (as near
+    as B allows) in an order drawn from `gen` after the state's draws;
+    one flag draws nothing, so the default is bench.py's problem bit for
+    bit."""
     f64 = dict(dtype=torch.float64)
 
     def t(v):
@@ -73,8 +81,11 @@ def plan_problems(cfg, B: int, gen: np.random.Generator) -> dict:
     com_des = com0 + t([0.0, 0.06, 0.0])
     H, dt = cfg.mpc.horizon, cfg.mpc.dt
     cycle = torch.full((B,), H * dt, **f64)
+    flags = np.resize(np.asarray(gait_flags, np.int32), B)
+    if len(gait_flags) > 1:
+        flags = gen.permutation(flags)
     contacts = gait.horizon_contacts(
-        torch.ones(B, dtype=torch.int32), torch.zeros(B, **f64), dt, H, cycle,
+        torch.as_tensor(flags), torch.zeros(B, **f64), dt, H, cycle,
         dtype=torch.float64)
     zeros3 = torch.zeros((B, 3), **f64)
     zero = torch.zeros_like(yaw)

@@ -6,10 +6,11 @@ Traffic file keys: batch (B), batches (problem batches made in set-up),
 in_flight (plans enqueued ahead of the device: enough to keep it busy,
 few enough that the window ends near `seconds`), check_lanes (lanes of
 each batch the reference checks, a seeded sample), trace_plans (plans of
-the traced window).
+the traced window), gait_flags (optional: the contact schedules dealt
+evenly over each batch's lanes, `gen.plan_problems`; default [1]).
 
 The problems are bench.py's (DogBot standing in a trot schedule, a 6 cm
-CoM step, seeded noise).
+CoM step, seeded noise), each lane's schedule one of `gait_flags`.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import time
 import numpy as np
 import torch
 
-from .. import common, gen, spec
+from .. import common, gen, marked, spec
 from .. import trace as trace_mod
 from ..counts import resident_ipm
 from ..counts.peaks import least_seconds
@@ -48,7 +49,8 @@ class Runner:
     def traffic(self):
         run, tr = self.run, self.tr
         self.host = [gen.plan_problems(self.rcfg, tr["batch"],
-                                       gen.rng(run.seed, 4, j))
+                                       gen.rng(run.seed, 4, j),
+                                       tr.get("gait_flags", (1,)))
                      for j in range(tr["batches"])]
         self.batches = [self._inputs(h, run.device) for h in self.host]
         common.sync()
@@ -71,7 +73,8 @@ class Runner:
         self.last = [None] * nb
         n = 0
         t0 = time.perf_counter()
-        while time.perf_counter() - t0 < run.seconds:
+        # every batch at least once, so that each has a plan to judge
+        while n < nb or time.perf_counter() - t0 < run.seconds:
             if on_card:     # wait for the plan `in_flight` back
                 ring[n % len(ring)].synchronize()
             j = n % nb
@@ -92,18 +95,12 @@ class Runner:
 
     # -- the traced window ------------------------------------------------
     def traced(self) -> dict:
-        tr = self.tr
         nb = len(self.batches)
-
-        def plans():
-            for n in range(tr["trace_plans"]):
-                with trace_mod.span("planner.plan"):
-                    self.planner.plan(self.cfg, *self.batches[n % nb])
-        trace = trace_mod.profile(plans, self.graph._counts)
+        trace = trace_mod.profile(self._trace_plans, self.graph._counts)
         sols = [out.sol for out in self.last if out is not None]
         iters = torch.cat([s.iters for s in sols]).double()
         roof = None
-        count, secs = trace_mod.seconds_of(trace, "resident_ipm")
+        count, secs = trace_mod.seconds_of(trace, resident_ipm.KERNEL)
         if count:
             need = 0.0
             for n in range(count):
@@ -112,9 +109,36 @@ class Runner:
                     self.cfg.mpc.horizon, sol.iters.cpu().numpy(),
                     sol.converged.cpu().numpy()))[0]
             roof = 100.0 * need / secs
-        return {"kind": "plan", "trace": trace,
+        return {"kind": "plan", "runner": self, "trace": trace,
                 "ipm_iters_mean": float(iters.mean()),
                 "resident_roofline_pct": roof}
+
+    # -- the marked profile (portbench/marked.py) -------------------------
+    marked_units = [("plan.pack", "plan.end")]
+
+    def _trace_plans(self):
+        """The traced window's plans, back to back."""
+        nb = len(self.batches)
+        for n in range(self.tr["trace_plans"]):
+            with trace_mod.span("planner.plan"):
+                self.planner.plan(self.cfg, *self.batches[n % nb])
+
+    def marked_work(self):
+        """The traced window's plans, after one that captures the marked
+        graph."""
+        self.planner.plan(self.cfg, *self.batches[0])
+        common.sync()
+        return self._trace_plans
+
+    @staticmethod
+    def marked_numbers(seen) -> dict:
+        """The packing's and unpacking's busy time a plan (every stage but
+        the solver call's), the mean over the plans."""
+        plans = seen["units"][("plan.pack", "plan.end")]
+        if not plans:
+            return {}
+        return {"plan_pack_ms": marked.busy_ms(plans, seen["others"],
+                                               lambda s: s != "plan.ipm")}
 
     # -- the comparison ---------------------------------------------------
     def release(self):

@@ -20,7 +20,7 @@ import time
 import numpy as np
 import torch
 
-from .. import common, gen, spec
+from .. import common, gen, marked, spec
 from .. import trace as trace_mod
 
 
@@ -170,26 +170,49 @@ class Runner:
 
     # -- the traced window ------------------------------------------------
     def traced(self) -> dict:
-        def rounds():
-            n = self.tr["trace_rounds"]
-            warm = self.cold()
-            for i in range(n):
-                with trace_mod.span("planner.plan"):
-                    out = self.plan_call(i, warm)
-                warm = self.next_warm(out)
-                torch.cuda.synchronize()
-                for k in range(self.tr["wbc_per_plan"]):
-                    with trace_mod.span("wbc.solve"):
-                        self.wbc_call(i * self.tr["wbc_per_plan"] + k)
-                    torch.cuda.synchronize()
-        tr = trace_mod.profile(rounds, self.graph._counts)
+        tr = trace_mod.profile(lambda: self._trace_rounds(
+            self.tr["trace_rounds"]), self.graph._counts)
 
         def median(kind, col):
             return float(np.median([x[col] for x in self.lat[kind]]))
-        return {"kind": "realtime", "trace": tr,
+        return {"kind": "realtime", "runner": self, "trace": tr,
                 "wbc_device_ms": median("wbc", 2),
                 "wbc_enqueue_ms": median("wbc", 1),
                 "replan_device_ms": median("plan", 2)}
+
+    # -- the marked profile (portbench/marked.py) -------------------------
+    marked_units = [("wbc.build", "wbc.end"), ("plan.pack", "plan.end")]
+
+    def _trace_rounds(self, n):
+        """n rounds of the traced window: a replan, then its WBC ticks,
+        each fenced."""
+        warm = self.cold()
+        per = self.tr["wbc_per_plan"]
+        for i in range(n):
+            with trace_mod.span("planner.plan"):
+                out = self.plan_call(i, warm)
+            warm = self.next_warm(out)
+            common.sync()
+            for k in range(per):
+                with trace_mod.span("wbc.solve"):
+                    self.wbc_call(i * per + k)
+                common.sync()
+
+    def marked_work(self):
+        """The traced window's rounds, after one round that captures the
+        marked graphs."""
+        self._trace_rounds(1)
+        return lambda: self._trace_rounds(self.tr["trace_rounds"])
+
+    @staticmethod
+    def marked_numbers(seen) -> dict:
+        """The QP's busy time a WBC call, the median over the calls."""
+        calls = seen["units"][("wbc.build", "wbc.end")]
+        if not calls:
+            return {}
+        return {"wbc_qp_ms": marked.busy_ms(calls, seen["others"],
+                                            lambda s: s == "wbc.qp",
+                                            np.median)}
 
     # -- the comparison ---------------------------------------------------
     def release(self):

@@ -36,9 +36,9 @@ import time
 import numpy as np
 import torch
 
-from .. import common, gen, spec
+from .. import common, gen, marked, spec
 from .. import trace as trace_mod
-from ..counts import spd_chol
+from ..counts import resident_qp, spd_chol
 from ..counts.peaks import least_seconds
 
 # the benchmark's span around the program's tick scan in the traced cycle
@@ -49,6 +49,9 @@ SCAN = "loop._scan_ticks"
 # lanes, which a few chaotic lanes do not reach
 STATE_LEAVES = ("p_base",)
 STATE_QUANTILE = 75
+# the leaves of a host scenario that make the reference's Terrain, each
+# where the generator gave it (h_map None: flat ground)
+TERRAIN_LEAVES = ("mu_map", "h_map")
 
 
 def _cycle_seconds(g) -> float:
@@ -162,14 +165,7 @@ class Runner:
         the host launches the scan's first graphs, so that profile gives
         nothing else)."""
         from apf_quadruped_tpu_torch.runtime import loop as ploop
-        cfg_t = self.cfg.replace(gait=dataclasses.replace(
-            self.cfg.gait, trot_cycle=self.tr["trace_cycle_s"],
-            crawl_cycle=self.tr["trace_cycle_s"],
-            fixed_cycle=self.tr["trace_cycle_s"]))
-        j, st = self.last
-        scn = self.batches[j]
-        st, _ = self.sweep.step_batch(cfg_t, scn, st, 1)
-        common.sync()
+        one = self._trace_cycle()
         n_ticks = int(round(self.tr["trace_cycle_s"] / self.cfg.sim.dt))
 
         real = ploop._scan_ticks
@@ -180,10 +176,6 @@ class Runner:
                 out = real(*args)
                 common.sync()
             return out
-
-        def one():
-            with trace_mod.span("sweep.step_batch"):
-                self.sweep.step_batch(cfg_t, scn, st, 1)
         tr = trace_mod.profile(one, self.graph._counts)
         ploop._scan_ticks = fenced
         try:
@@ -204,12 +196,54 @@ class Runner:
                 busy += secs
             roof = 100.0 * need / busy
         out = self.out
-        return {"kind": "sweep", "trace": tr, "ticks": n_ticks,
-                "tick_device_ms": tick_ms, "spd_roofline_pct": roof,
+        return {"kind": "sweep", "runner": self, "trace": tr,
+                "ticks": n_ticks, "tick_device_ms": tick_ms,
+                "spd_roofline_pct": roof,
+                "qp_roofline_pct": resident_qp.roofline_pct(
+                    *trace_mod.seconds_of(tr, resident_qp.KERNEL),
+                    self.tr["batch"], self.cfg.solver),
                 "qp_converged_share": out["qp_converged_share"],
                 "notes": [f"portbench: lane-cycles in crawl "
                           f"{out['crawl_lane_cycles']} of "
                           f"{out['lane_cycles']} in the window"]}
+
+    def _trace_cycle(self):
+        """The traced window's work: a function that runs one cycle of the
+        configuration cut to `trace_cycle_s` from the window's last state,
+        after one such cycle, run here, which captures the cut cycle's
+        graphs."""
+        cfg_t = self.cfg.replace(gait=dataclasses.replace(
+            self.cfg.gait, trot_cycle=self.tr["trace_cycle_s"],
+            crawl_cycle=self.tr["trace_cycle_s"],
+            fixed_cycle=self.tr["trace_cycle_s"]))
+        j, st = self.last
+        scn = self.batches[j]
+        st, _ = self.sweep.step_batch(cfg_t, scn, st, 1)
+        common.sync()
+
+        def one():
+            with trace_mod.span("sweep.step_batch"):
+                self.sweep.step_batch(cfg_t, scn, st, 1)
+        return one
+
+    # -- the marked profile (portbench/marked.py) -------------------------
+    marked_units = [("tick.refs", "tick.end")]
+    # one marked cycle cut as the traced window's, after one that captures
+    # its marked graphs
+    marked_work = _trace_cycle
+
+    @staticmethod
+    def marked_numbers(seen) -> dict:
+        """The QP's and physics' busy time a tick, the mean over the
+        ticks."""
+        ticks, others = seen["units"][("tick.refs", "tick.end")], \
+            seen["others"]
+        if not ticks:
+            return {}
+        return {"tick_qp_ms": marked.busy_ms(ticks, others,
+                                             lambda s: s == "wbc.qp"),
+                "tick_physics_ms": marked.busy_ms(ticks, others,
+                                                  lambda s: s == "physics")}
 
     # -- the comparison ---------------------------------------------------
     def release(self):
@@ -242,38 +276,54 @@ class Runner:
         navigation, footholds, references and plan, the plan stopped at
         `stop` (None: at its tolerances)."""
         from ..reference.runtime import loop as rloop
-        from ..reference.sim import terrain as rterrain
 
         def t(k):
             return self._host(j, k, dtype, device)
-        B = self.tr["batch"]
-        st = rloop.init(self.rcfg, B, dtype=dtype, device=device)
-        st = st._replace(sim=st.sim._replace(p_base=torch.cat(
-            [t("spawn_xy"), st.sim.p_base[:, 2:3]], dim=-1)))
-        terr = rterrain.Terrain(mu_map=t("mu_map"),
-                                extent=self.rcfg.sim.terrain_extent,
-                                res=self.rcfg.sim.terrain_res)
         head = rloop._cycle_head_eager(
-            self.rcfg, st, terr, t("target_xy"), t("dist_sched"),
+            self.rcfg, self.reference_spawn(j, dtype, device),
+            self.reference_terrain(j, dtype, device), t("target_xy"),
+            t("dist_sched"),
             plan_stop_at=None if stop is None else stop.to(device))
         return head.tail.warm_next[0], head.tail.mpc_iters
+
+    def reference_spawn(self, j, dtype, device="cpu"):
+        """The reference's LoopState of every lane of batch j at its spawn,
+        as the program's `sweep.init_batch` makes it: the spawn's xy on
+        the base, the rest (yaw, the friction anchors) at the origin's
+        spawn."""
+        from ..reference.runtime import loop as rloop
+        st = rloop.init(self.rcfg, self.tr["batch"], dtype=dtype,
+                        device=device)
+        return st._replace(sim=st.sim._replace(p_base=torch.cat(
+            [self._host(j, "spawn_xy", dtype, device),
+             st.sim.p_base[:, 2:3]], dim=-1)))
+
+    def reference_terrain(self, j, dtype, device="cpu", lanes=None):
+        """The reference's Terrain of batch j (its `lanes`; None: every
+        lane) from every terrain leaf the host scenario holds
+        (TERRAIN_LEAVES), so that the reference walks the ground the
+        program walks."""
+        from ..reference.sim import terrain as rterrain
+        return rterrain.Terrain(
+            extent=self.rcfg.sim.terrain_extent,
+            res=self.rcfg.sim.terrain_res,
+            **{k: self._host(j, k, dtype, device, lanes)
+               for k in TERRAIN_LEAVES if k in self.host[j]})
 
     def reference_cycle(self, j, dtype, device="cpu") -> list:
         """The reference's own cycle of the sampled lanes of batch j, from
         the program's state at the checked cycle's start: the end state's
         compared leaves."""
         from ..reference.runtime import loop as rloop
-        from ..reference.sim import terrain as rterrain
 
         def t(k):
             return self._host(j, k, dtype, device, self.lanes)
         st = common.recast(common.floats_to(self.start, dtype, device),
                            common.reference_types())
-        terr = rterrain.Terrain(mu_map=t("mu_map"),
-                                extent=self.rcfg.sim.terrain_extent,
-                                res=self.rcfg.sim.terrain_res)
-        end, _ = rloop.run_cycle(self.rcfg, st, terr, t("target_xy"),
-                                 t("dist_sched"))
+        end, _ = rloop.run_cycle(
+            self.rcfg, st, self.reference_terrain(j, dtype, device,
+                                                  self.lanes),
+            t("target_xy"), t("dist_sched"))
         return [getattr(end.sim, k) for k in STATE_LEAVES]
 
     def judge(self, warm_u, iters) -> dict:

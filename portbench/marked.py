@@ -22,35 +22,32 @@ The window's results are on the host by then (the runner's `release`
 comes after the readers, `check` reads only what the window kept), so the
 marked graphs it captures touch no number compared.
 
-The readers are handed only the traced window's observations, so
-`observe` finds the cell's runner in the caller's frame, where the
-harness (`harness.execute`) holds it beside them as `rnr`.  Where the
-program has no marks (a tree from before them) or the marked profile lost
-launches under the guard's 95% (portbench/trace.py), the readers read
-nothing (None).  Where the program has marks and no caller holds the
-runner, or the marked profile fails, the reader raises, so that a traced
-run with missing metrics fails rather than leaves them out.
+Each traffic kind brings its own marked profile on its runner
+(portbench/kinds/<kind>.py): `marked_work()`, the work to profile, called
+with marks on, which returns a function that runs it; `marked_units`,
+the units it holds, [(first stage, end mark)]; `marked_numbers(seen)`,
+the metrics' values from `read_units`'s result.  A runner that defines
+none of them gets no marked numbers.  The runner's `traced()` hands
+itself to the readers under the key "runner" of its observations.  Where
+the program has no marks (a tree from before them) or the marked profile
+lost launches under the guard's 95% (portbench/trace.py), the readers
+read nothing (None).  Where the program has marks and the observations
+hold no runner, or the marked profile fails, the reader raises, so that
+a traced run with missing metrics fails rather than leaves them out.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import re
 import sys
 
 import numpy as np
 
-from . import common
 from . import trace as trace_mod
 
 MARK = re.compile(r"apf_mark_kernel<(\d+)>")
 # the program's spans, and the benchmark's own (trace_mod.SPAN)
 PROGRAM_SPAN = "apf: "
-
-# each kind's units: (first stage, end mark)
-UNITS = {"sweep": [("tick.refs", "tick.end")],
-         "realtime": [("wbc.build", "wbc.end"), ("plan.pack", "plan.end")],
-         "plan": [("plan.pack", "plan.end")]}
 
 
 # -- the arithmetic on a trace ---------------------------------------------
@@ -163,106 +160,22 @@ def idle_by_span(trace, top: int = 6) -> list:
     return sorted(out.items(), key=lambda x: -x[1])[:top]
 
 
-def read_units(trace, kind: str, stages) -> dict:
-    """What the metrics of `kind` read of a marked trace: {(first, end):
-    [Unit]}, the operations that are not marks, and the marks."""
+def read_units(trace, keys, stages) -> dict:
+    """What a kind's metrics read of a marked trace: {(first, end):
+    [Unit]} for each (first stage, end mark) of `keys`, the operations
+    that are not marks, and the marks."""
     marks, others = split(trace.kernels, stages)
-    return {"units": {key: units(marks, *key) for key in UNITS[kind]},
+    return {"units": {key: units(marks, *key) for key in keys},
             "others": others, "marks": marks}
 
 
-def numbers(kind: str, seen: dict) -> dict:
-    """The metrics' values from `read_units`'s result, each a stage's busy
-    time; a value is absent where its units are."""
-    out, others = {}, seen["others"]
-
-    def busy_ms(us, keep, mean=np.mean):
-        return float(mean([u.busy_us(others, keep) for u in us])) * 1e-3
-    if kind == "sweep":
-        ticks = seen["units"][("tick.refs", "tick.end")]
-        if ticks:
-            out["tick_qp_ms"] = busy_ms(ticks, lambda s: s == "wbc.qp")
-            out["tick_physics_ms"] = busy_ms(ticks, lambda s: s == "physics")
-    elif kind == "realtime":
-        calls = seen["units"][("wbc.build", "wbc.end")]
-        if calls:
-            out["wbc_qp_ms"] = busy_ms(calls, lambda s: s == "wbc.qp",
-                                       np.median)
-    elif kind == "plan":
-        plans = seen["units"][("plan.pack", "plan.end")]
-        if plans:
-            out["plan_pack_ms"] = busy_ms(plans, lambda s: s != "plan.ipm")
-    return out
+def busy_ms(us, others: Ops, keep, mean=np.mean) -> float:
+    """`mean` over the units `us` of the busy time of their stages for
+    which `keep(stage)` holds, in ms."""
+    return float(mean([u.busy_us(others, keep) for u in us])) * 1e-3
 
 
-# -- the marked profile of each kind ----------------------------------------
-
-def _sweep_work(rnr):
-    """One marked cycle cut as the traced window's (trace_cycle_s) from the
-    window's last state, after one that captures its graphs."""
-    cfg_t = rnr.cfg.replace(gait=dataclasses.replace(
-        rnr.cfg.gait, trot_cycle=rnr.tr["trace_cycle_s"],
-        crawl_cycle=rnr.tr["trace_cycle_s"],
-        fixed_cycle=rnr.tr["trace_cycle_s"]))
-    j, st = rnr.last
-    scn = rnr.batches[j]
-    st, _ = rnr.sweep.step_batch(cfg_t, scn, st, 1)
-    common.sync()
-
-    def work():
-        with trace_mod.span("sweep.step_batch"):
-            rnr.sweep.step_batch(cfg_t, scn, st, 1)
-    return work
-
-
-def _realtime_work(rnr):
-    """The traced window's rounds (a replan, then its WBC ticks, each
-    fenced), after one round that captures the marked graphs."""
-    def rounds(n):
-        warm = rnr.cold()
-        per = rnr.tr["wbc_per_plan"]
-        for i in range(n):
-            with trace_mod.span("planner.plan"):
-                out = rnr.plan_call(i, warm)
-            warm = rnr.next_warm(out)
-            common.sync()
-            for k in range(per):
-                with trace_mod.span("wbc.solve"):
-                    rnr.wbc_call(i * per + k)
-                common.sync()
-    rounds(1)
-    return lambda: rounds(rnr.tr["trace_rounds"])
-
-
-def _plan_work(rnr):
-    """The traced window's plans, after one that captures the marked
-    graph."""
-    nb = len(rnr.batches)
-    rnr.planner.plan(rnr.cfg, *rnr.batches[0])
-    common.sync()
-
-    def plans():
-        for n in range(rnr.tr["trace_plans"]):
-            with trace_mod.span("planner.plan"):
-                rnr.planner.plan(rnr.cfg, *rnr.batches[n % nb])
-    return plans
-
-
-WORK = {"sweep": _sweep_work, "realtime": _realtime_work, "plan": _plan_work}
-
-
-def _runner(obs):
-    """The runner whose traced window `obs` holds, from the frame of the
-    harness that hands `obs` to the readers; None where no caller holds
-    it."""
-    f = sys._getframe(1)
-    while f is not None:
-        loc = f.f_locals
-        if loc.get("obs") is obs and hasattr(loc.get("rnr"), "traced"):
-            return loc["rnr"]
-        f = f.f_back
-    return None
-
+# -- the profile -------------------------------------------------------------
 
 # (the observations last read, their numbers)
 _last = (None, None)
@@ -279,28 +192,30 @@ def observe(obs) -> dict | None:
 
 def _observe(obs) -> dict | None:
     from apf_quadruped_tpu_torch.runtime import profiling
-    kind = obs.get("kind")
-    if kind not in WORK or not hasattr(profiling, "marks"):
+    if not hasattr(profiling, "marks"):
         return None
-    rnr = _runner(obs)
+    rnr = obs.get("runner")
     if rnr is None:
-        raise RuntimeError("no caller holds the runner beside the traced "
-                           "window's observations (harness.execute's `rnr` "
-                           "and `obs`), so the marked profile cannot run")
+        raise RuntimeError("the traced window's observations hold no runner "
+                           "(the key \"runner\", which the kind's traced() "
+                           "sets), so the marked profile cannot run")
+    if not hasattr(rnr, "marked_work"):
+        return None
+    kind = obs.get("kind")
     if "trace" in obs:
         _print("idle by the span that held the host (the traced window's "
                "profile): " + ", ".join(f"{n} {s:.6f} s" for n, s
                                        in idle_by_span(obs["trace"])))
     with profiling.marks(True):
-        work = WORK[kind](rnr)
+        work = rnr.marked_work()
         tr = trace_mod.profile(work, rnr.graph._counts)
-    seen = read_units(tr, kind, profiling.STAGES)
+    seen = read_units(tr, rnr.marked_units, profiling.STAGES)
     _notes(kind, tr, seen, obs)
     if not tr.lossless:
         _print("the marked profile recorded under the guard's 95% of the "
                "counted launches: its metrics are left out")
         return None
-    return numbers(kind, seen)
+    return rnr.marked_numbers(seen)
 
 
 def _print(line):

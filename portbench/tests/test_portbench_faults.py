@@ -25,6 +25,8 @@ from portbench import harness
 from . import small
 
 SWEEPS = [w for w in small.WORKLOADS if w.endswith("sweep_b1024")]
+PLANS = [w for w in small.WORKLOADS
+         if small.cell(w).traffic["kind"] == "plan"]
 
 
 def _correct(name: str, seed: int = 4242) -> bool:
@@ -127,15 +129,17 @@ def _plan_fault(monkeypatch, fault):
     monkeypatch.setattr(planner, "plan", broken)
 
 
-def test_plan_sound():
-    assert _correct("dogbot_trot.plan_b2048")
+@pytest.mark.parametrize("name", PLANS)
+def test_plan_sound(name):
+    assert _correct(name)
 
 
 @pytest.mark.parametrize("fault", ["unchanged", "half", "altered",
                                    "stops_early"])
-def test_plan_fault(monkeypatch, fault):
+@pytest.mark.parametrize("name", PLANS)
+def test_plan_fault(monkeypatch, name, fault):
     _plan_fault(monkeypatch, fault)
-    assert not _correct("dogbot_trot.plan_b2048")
+    assert not _correct(name)
 
 
 # -- one robot -------------------------------------------------------------

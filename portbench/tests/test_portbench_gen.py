@@ -47,6 +47,43 @@ def test_plan_problems_are_bench_problem():
                                    rtol=0, atol=1e-6, err_msg=k)
 
 
+def test_plan_problems_deal_their_gait_flags():
+    """One flag is bench.py's problem bit for bit; several are dealt evenly
+    over the lanes in a seeded order, each lane's contacts the flag's
+    schedule over the horizon, which for the adaptive configuration is
+    the loop's own crawl cycle; the state's draws do not move."""
+    import torch
+
+    from portbench.reference import gait
+    base = gen.plan_problems(_rcfg(), 6, gen.rng(5, 4))
+    ones = gen.plan_problems(_rcfg(), 6, gen.rng(5, 4), [1])
+    assert all(np.array_equal(v, ones[k]) for k, v in base.items())
+    ref = spec.reference_config(spec.cell("dogbot_adaptive.plan_b1024").config)
+    H, dt = ref.mpc.horizon, ref.mpc.dt
+    assert H * dt == ref.gait.crawl_cycle
+    mixed = gen.plan_problems(ref, 6, gen.rng(5, 4), [4, 15])
+    again = gen.plan_problems(ref, 6, gen.rng(5, 4), [4, 15])
+    assert all(np.array_equal(v, again[k]) for k, v in mixed.items())
+    plain = gen.plan_problems(ref, 6, gen.rng(5, 4))
+    for k in ("x0", "yaw_ref"):
+        assert np.array_equal(mixed[k], plain[k]), k
+
+    def sched(flag):
+        return gait.horizon_contacts(
+            torch.tensor([flag]), torch.zeros(1, dtype=torch.float64), dt, H,
+            torch.tensor([H * dt], dtype=torch.float64),
+            dtype=torch.float64)[0].numpy()
+    of = [[f for f in (4, 15) if np.array_equal(c, sched(f))]
+          for c in mixed["contacts"]]
+    assert all(len(f) == 1 for f in of)
+    assert sorted(f[0] for f in of) == [4, 4, 4, 15, 15, 15]
+    assert not np.array_equal(sched(4), sched(15))
+    orders = {tuple(np.argsort(gen.plan_problems(
+        ref, 6, gen.rng(s, 4), [4, 15])["contacts"].sum(axis=(1, 2)),
+        kind="stable")) for s in range(6)}
+    assert len(orders) > 1
+
+
 def test_wbc_states_are_wbc_problem():
     from apf_quadruped_tpu_torch import problems
     cfg = spec.program_config(CONF)

@@ -1,14 +1,16 @@
 """The marked profile's arithmetic (portbench/marked.py) on hand-made
-traces: each stage's interval and busy time, and the plan's packing; the
-four readers' values through the harness's path, None where there is
-nothing to read (no observations, no marks, a lossy profile, a program
-without marks), and a failure where the program has marks and the runner
-or the profile is missing; the harness's own `execute` handing the
-readers its runner; and the program's spans kept off the device's
+traces: each stage's interval and busy time, and the plan's packing, as
+each kind's runner reads them; the four readers' values through the
+harness's path, None where there is nothing to read (no observations, no
+marks, a lossy profile, a program without marks), and a failure where the
+program has marks and the runner or the profile is missing; the runner
+handed to the readers in its traced window's observations, with or
+without the harness; and the program's spans kept off the device's
 operations."""
 
 from __future__ import annotations
 
+import importlib
 import types
 
 import pytest
@@ -16,6 +18,7 @@ import torch
 
 from apf_quadruped_tpu_torch.runtime import profiling
 from portbench import harness, marked, spec, trace
+from portbench.kinds import plan, realtime, sweep
 
 STAGES = profiling.STAGES
 
@@ -80,7 +83,8 @@ def _trace(kernels, share=1.0, host=()):
 
 
 def test_stage_intervals_and_busy_times_of_ticks():
-    seen = marked.read_units(_trace(SWEEP), "sweep", STAGES)
+    seen = marked.read_units(_trace(SWEEP), sweep.Runner.marked_units,
+                             STAGES)
     ticks = seen["units"][("tick.refs", "tick.end")]
     assert len(ticks) == 2
     u = ticks[0]
@@ -91,7 +95,7 @@ def test_stage_intervals_and_busy_times_of_ticks():
     # the stages sum to the unit less the marks inside it (6 of 1 us)
     assert sum(b - a for _, a, b in u.stages) == (u.hi - u.lo) - 6
     assert seen["others"].busy(u.lo, u.hi) == 3 + 3 + 8 + 8 + 2 + 10 + 4
-    out = marked.numbers("sweep", seen)
+    out = sweep.Runner.marked_numbers(seen)
     # the QP stage's busy time: its two kernels, not the 2 us between them
     assert out["tick_qp_ms"] == pytest.approx((16 + 26) / 2 * 1e-3)
     assert out["tick_physics_ms"] == pytest.approx(10e-3)
@@ -104,20 +108,21 @@ def test_stage_intervals_and_busy_times_of_ticks():
 
 
 def test_wbc_calls_and_plans():
-    seen = marked.read_units(_trace(REALTIME), "realtime", STAGES)
+    seen = marked.read_units(_trace(REALTIME), realtime.Runner.marked_units,
+                             STAGES)
     calls = seen["units"][("wbc.build", "wbc.end")]
     assert len(calls) == 3 and len(seen["units"][("plan.pack",
                                                   "plan.end")]) == 1
-    out = marked.numbers("realtime", seen)
+    out = realtime.Runner.marked_numbers(seen)
     # the median call's QP stage runs from the end of its mark (+5) to
     # the start of the torque mark (+6 + 20); its kernel is busy 20 us
     assert out == {"wbc_qp_ms": pytest.approx(20e-3)}
     assert calls[1].stages[1][2] - calls[1].stages[1][1] == 21
-    plan = marked.numbers("plan", marked.read_units(_trace(PLAN), "plan",
-                                                    STAGES))
+    packed = plan.Runner.marked_numbers(marked.read_units(
+        _trace(PLAN), plan.Runner.marked_units, STAGES))
     # pack 1 -> 6 busy 4 us and unpack 101 -> 104 busy 2 us: the solver's
     # stage left out
-    assert plan["plan_pack_ms"] == pytest.approx(6e-3)
+    assert packed["plan_pack_ms"] == pytest.approx(6e-3)
 
 
 def test_unclosed_and_reopened_units_are_left_out():
@@ -158,18 +163,21 @@ READERS = {"tick_qp_device_ms.sweep": ("sweep", SWEEP, 21e-3),
            "plan_pack_device_ms.plan": ("plan", PLAN, 6e-3)}
 
 
-class _Runner:
-    """What the marked profile reads of a runner, here nothing."""
-
-    graph = types.SimpleNamespace(_counts=lambda: (0,))
-
-    def traced(self):
-        raise AssertionError("not called")
+def _runner(kind):
+    """A runner of `kind` as the marked profile reads it: the kind's own
+    units and numbers, its work a no-op, no set-up and no program behind
+    it."""
+    cls = importlib.import_module(f"portbench.kinds.{kind}").Runner
+    rnr = cls.__new__(cls)
+    rnr.graph = types.SimpleNamespace(_counts=lambda: (0,))
+    rnr.marked_work = lambda: (lambda: None)
+    return rnr
 
 
 def _execute(read, obs, rnr):
-    """The harness's frame: the readers' runner beside their
-    observations."""
+    """What a kind's traced() hands the readers: its observations with
+    the runner in them."""
+    obs["runner"] = rnr
     return read(obs)
 
 
@@ -185,8 +193,6 @@ def profiled(monkeypatch):
             made.append(1)
             return _trace(kernels, share)
         monkeypatch.setattr(marked.trace_mod, "profile", profile)
-        for kind in marked.WORK:
-            monkeypatch.setitem(marked.WORK, kind, lambda rnr: lambda: None)
     use.made = made
     return use
 
@@ -197,10 +203,10 @@ def test_reader_reads_the_marked_profile(profiled, name):
     profiled(kernels)
     read = spec.reader(name)
     obs = {"kind": kind}
-    assert _execute(read, obs, _Runner()) == pytest.approx(value)
+    assert _execute(read, obs, _runner(kind)) == pytest.approx(value)
     assert read({}) is None
     other = {"sweep": "plan", "realtime": "sweep", "plan": "realtime"}[kind]
-    assert _execute(read, {"kind": other}, _Runner()) is None
+    assert _execute(read, {"kind": other}, _runner(other)) is None
 
 
 @pytest.mark.parametrize("name", list(READERS))
@@ -210,46 +216,56 @@ def test_reader_reads_nothing_without_marks_or_guard(profiled, name,
     read = spec.reader(name)
     plain = [k for k in kernels if "apf_mark_kernel" not in k[0]]
     profiled(plain)
-    assert _execute(read, {"kind": kind}, _Runner()) is None   # no marks
+    assert _execute(read, {"kind": kind}, _runner(kind)) is None  # no marks
     profiled(kernels, share=0.9)
-    assert _execute(read, {"kind": kind}, _Runner()) is None   # lossy
+    assert _execute(read, {"kind": kind}, _runner(kind)) is None  # lossy
     profiled(kernels)
     monkeypatch.delattr(profiling, "marks")      # a program before marks
-    assert _execute(read, {"kind": kind}, _Runner()) is None
+    assert _execute(read, {"kind": kind}, _runner(kind)) is None
 
 
 def test_one_profile_serves_every_reader(profiled):
     profiled(SWEEP)
     obs = {"kind": "sweep"}
+    rnr = _runner("sweep")
     for name in ("tick_qp_device_ms.sweep", "tick_physics_device_ms.sweep"):
-        assert _execute(spec.reader(name), obs, _Runner()) is not None
+        assert _execute(spec.reader(name), obs, rnr) is not None
     assert len(profiled.made) == 1
 
 
 @pytest.mark.parametrize("name", list(READERS))
 def test_reader_raises_without_runner(profiled, name):
-    """With marks in the program, a reader whose caller holds no runner
-    fails the run instead of leaving its metric out."""
+    """With marks in the program, a reader whose observations hold no
+    runner fails the run instead of leaving its metric out."""
     kind, kernels, _ = READERS[name]
     profiled(kernels)
     with pytest.raises(RuntimeError, match="runner"):
         spec.reader(name)({"kind": kind})
 
 
-def test_a_failed_profile_raises(monkeypatch):
-    def broken(rnr):
+def test_a_failed_profile_raises():
+    def broken():
         raise RuntimeError("no card")
-    monkeypatch.setitem(marked.WORK, "plan", broken)
+    rnr = _runner("plan")
+    rnr.marked_work = broken
     read = spec.reader("plan_pack_device_ms.plan")
     with pytest.raises(RuntimeError, match="no card"):
-        _execute(read, {"kind": "plan"}, _Runner())
+        _execute(read, {"kind": "plan"}, rnr)
 
 
-class _Cell(_Runner):
+class _Cell(plan.Runner):
     """A plan cell's runner whose window and traced window are made by
-    hand: what harness.execute calls of it."""
+    hand: what harness.execute calls of it; its marked profile the plan
+    kind's, its work a no-op."""
 
     captured_in_window = 0
+    graph = types.SimpleNamespace(_counts=lambda: (0,))
+
+    def __init__(self):
+        pass
+
+    def marked_work(self):
+        return lambda: None
 
     def traffic(self):
         pass
@@ -262,7 +278,8 @@ class _Cell(_Runner):
 
     def traced(self):
         host = [("portbench: planner.plan", 0.0, 110.0)]
-        return {"kind": "plan", "trace": _trace(PLAN, host=host)}
+        return {"kind": "plan", "runner": self,
+                "trace": _trace(PLAN, host=host)}
 
     def counts(self):
         return 1, 0
@@ -275,10 +292,10 @@ class _Cell(_Runner):
 
 
 def test_the_harness_hands_the_readers_its_runner(profiled, monkeypatch):
-    """harness.execute holds the runner as `rnr` beside the traced
-    window's `obs` where marked.observe looks for it: a rename there fails
-    this test, and a traced run, instead of silently dropping the
-    metrics."""
+    """Through harness.execute, the runner its traced() hands the readers
+    in the observations runs the marked profile: a kind that stops
+    handing it fails this test, and a traced run, instead of silently
+    dropping the metrics."""
     profiled(PLAN)
     monkeypatch.setattr(harness.common, "forbidden_modules", lambda: [])
     cell = spec.cell("dogbot_trot.plan_b2048")
@@ -290,6 +307,17 @@ def test_the_harness_hands_the_readers_its_runner(profiled, monkeypatch):
     assert result["metrics"] == {"plan_pack_device_ms.plan": {
         "value": pytest.approx(6e-3), "unit": "ms"}}
     assert profiled.made == [1]
+
+
+def test_a_reader_finds_the_runner_with_no_harness_frame(profiled):
+    """The runner travels in the observations, not in a caller's frame:
+    a reader called on a traced window's observations alone runs its
+    kind's marked profile."""
+    profiled(PLAN)
+    obs = _Cell().traced()
+    assert spec.reader("plan_pack_device_ms.plan")(obs) == pytest.approx(
+        6e-3)
+    assert profiled.made == [1] and not hasattr(marked, "_runner")
 
 
 # -- the program's spans are not device operations ---------------------------

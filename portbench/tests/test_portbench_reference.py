@@ -1,15 +1,20 @@
 """The plain reference against the program's eager CPU path at a tiny
-size, in float64: the same code, so the same bits; and its `stop_at`
-reproduces a lane stopped at its tolerances."""
+size, in float64: the same code, so the same bits; its `stop_at`
+reproduces a lane stopped at its tolerances; and the sweep kind builds
+the reference's ground and spawn from every leaf the host scenario
+holds."""
 
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import pytest
 import torch
 
-from portbench import common, gen, spec
+from portbench import common, gen, harness, spec
+
+from . import small
 
 CONF = spec.cell("dogbot_trot.sweep_b1024").config
 F64 = torch.float64
@@ -116,3 +121,75 @@ def test_tf32_control_switch_restores():
     with tf32_control(), highest_precision():
         assert torch.backends.cuda.matmul.allow_tf32
     assert torch.backends.cuda.matmul.allow_tf32 == before
+
+
+# -- the sweep kind's reference terrain and spawn ------------------------------
+
+@pytest.fixture
+def sweep_runner():
+    rnr = harness.runner(small.run("dogbot_trot.sweep_b1024"))
+    rnr.traffic()
+    return rnr
+
+
+def test_sweep_reference_ground_and_spawn_are_the_flat_ones(sweep_runner):
+    """With no h_map in the host scenario, the reference's Terrain and
+    spawn state are those the sweep kind built before it had one method
+    for each: the friction map alone, and the spawn's xy on the base."""
+    from portbench.reference.runtime import loop as rloop
+    from portbench.reference.sim import terrain as rterrain
+    rnr, rcfg = sweep_runner, sweep_runner.rcfg
+    h = rnr.host[1]
+    lanes = np.array([0, 2])
+    for sel in (None, lanes):
+        mu = torch.as_tensor(h["mu_map"] if sel is None else h["mu_map"][sel],
+                             dtype=F64)
+        want = rterrain.Terrain(mu_map=mu, extent=rcfg.sim.terrain_extent,
+                                res=rcfg.sim.terrain_res)
+        got = rnr.reference_terrain(1, F64, lanes=sel)
+        assert got.h_map is None and (got.extent, got.res) == (
+            want.extent, want.res)
+        assert torch.equal(got.mu_map, want.mu_map)
+    st = rloop.init(rcfg, rnr.tr["batch"], dtype=F64, device="cpu")
+    want = st._replace(sim=st.sim._replace(p_base=torch.cat(
+        [torch.as_tensor(h["spawn_xy"], dtype=F64), st.sim.p_base[:, 2:3]],
+        dim=-1)))
+    _same(rnr.reference_spawn(1, F64), want)
+
+
+class _Handed(Exception):
+    """Stops the reference where it is handed its terrain."""
+
+
+def test_sweep_reference_walks_the_height_map_it_is_given(sweep_runner,
+                                                          monkeypatch):
+    """An h_map put into a host scenario reaches the reference's Terrain,
+    every lane or the sampled ones, and both the head that judges the plan
+    and the cycle that judges the state walk it."""
+    from portbench.reference.runtime import loop as rloop
+    rnr = sweep_runner
+    res = rnr.rcfg.sim.terrain_res
+    h_map = np.random.default_rng(0).uniform(
+        0.0, 0.1, (rnr.tr["batch"], res, res)).astype(np.float32)
+    rnr.host[0]["h_map"] = h_map
+    got = rnr.reference_terrain(0, F64)
+    assert torch.equal(got.h_map, torch.as_tensor(h_map, dtype=F64))
+    got = rnr.reference_terrain(0, F64, lanes=np.array([3, 1]))
+    assert torch.equal(got.h_map, torch.as_tensor(h_map[[3, 1]], dtype=F64))
+
+    handed = []
+
+    def take(cfg, st, terr, *rest, **kw):
+        handed.append(terr.h_map)
+        raise _Handed
+    monkeypatch.setattr(rloop, "_cycle_head_eager", take)
+    monkeypatch.setattr(rloop, "run_cycle", take)
+    with pytest.raises(_Handed):
+        rnr.reference_head(0, None, F64)
+    st = rnr.sweep.init_batch(rnr.cfg, rnr.batches[0])
+    rnr.start = common.floats_to(common.take(st, rnr.lanes), torch.float32)
+    with pytest.raises(_Handed):
+        rnr.reference_cycle(0, F64)
+    assert torch.equal(handed[0], torch.as_tensor(h_map, dtype=F64))
+    assert torch.equal(handed[1], torch.as_tensor(h_map[rnr.lanes],
+                                                  dtype=F64))

@@ -189,11 +189,14 @@ def spd_kernels(trace: Trace) -> dict:
     return out
 
 
-def seconds_of(trace: Trace, part: str) -> tuple[int, float]:
-    """(launches, seconds) of the device operations whose name holds
-    `part`."""
+def seconds_of(trace: Trace, kernel: str) -> tuple[int, float]:
+    """(launches, seconds) of the device operations that are launches of
+    the kernel `kernel`: its whole name, followed by its template or
+    argument list, as a profiler names it (`resident_ipm_kernel` is not
+    `resident_ipm_qp_kernel`)."""
+    whole = re.compile(rf"\b{re.escape(kernel)}\s*[<(]")
     c = s = 0
     for name, (n, t) in trace.by_name().items():
-        if part in name:
+        if whole.search(name):
             c, s = c + n, s + t
     return c, s
