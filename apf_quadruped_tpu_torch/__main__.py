@@ -2,15 +2,18 @@
 
     python -m apf_quadruped_tpu_torch run   --case 2 --target 0,2 --cycles 8
     python -m apf_quadruped_tpu_torch sweep --batch 64 --cycles 6
+    python -m apf_quadruped_tpu_torch sweep --worlds slope,stairs --batch 1024
     python -m apf_quadruped_tpu_torch bench
 
 mirrors `python -m apf_quadruped_tpu` with the same flags and lines:
 `run` drives one scenario through the closed loop (and with --plot
 writes the trajectory and metric plots, which needs matplotlib); `sweep`
-walks a batch of random slippery-patch scenarios through it in lockstep,
-split over the devices and processes with --sharded, resumable from a
-checkpoint directory with --checkpoint; `bench` times the batched MPC
-plan (the port's own headline: planner.plan on bench.py's problem).
+walks a batch of random slippery-patch scenarios through it in lockstep
+(with --worlds, each lane on one of towr's height worlds, spawned short of
+its feature), split over the devices and processes with --sharded,
+resumable from a checkpoint directory with --checkpoint; `bench` times
+the batched MPC plan (the port's own headline: planner.plan on bench.py's
+problem).
 Every command runs on the CUDA card (the hand-written kernels), or on the
 CPU with `--device cpu` (their plain versions); without a card and
 without `--device cpu` it raises.
@@ -89,7 +92,8 @@ def cmd_run(args):
     st2, m, terr, tgt = run_closed_loop(cfg, args.case, args.world,
                                         args.target, args.cycles,
                                         device=device)
-    m = loop.CycleMetrics(*(convert.to_numpy(v[0]) for v in m))
+    m = loop.CycleMetrics(*(None if v is None else convert.to_numpy(v[0])
+                            for v in m))
     com = m.com
     for i in range(len(com)):
         print(f"cycle {i}: com=({com[i, 0]:+.3f}, {com[i, 1]:+.3f}, "
@@ -110,7 +114,7 @@ def cmd_run(args):
         print(f"wrote {p1} and {p2}")
 
 
-def _summary(args, device, gd, fell, qp_conv, slip):
+def _summary(args, device, gd, fell, qp_conv, slip, ground):
     import torch
 
     gd = gd.double().cpu()
@@ -118,7 +122,9 @@ def _summary(args, device, gd, fell, qp_conv, slip):
           f"goal_dist mean={float(gd.mean()):.3f} "
           f"p90={float(torch.quantile(gd, 0.9)):.3f} "
           f"fell={int(fell)} qp_conv={float(qp_conv):.2f} "
-          f"slip={float(slip):.3f}")
+          f"slip={float(slip):.3f}"
+          + ("" if ground is None
+             else f" ground_feet={float(ground.mean()):.3f}"))
 
 
 def cmd_sweep(args):
@@ -129,8 +135,12 @@ def cmd_sweep(args):
 
     device = _device(args)
     cfg = _cfg(args)
+    worlds = [w for w in args.worlds.split(",") if w]
+    spawn = ((sweep.WORLD_SPAWN_X, sweep.WORLD_SPAWN_Y) if worlds
+             else (None, None))
     scn = sweep.random_scenarios(cfg, n=args.batch, seed=args.seed,
-                                 device=device)
+                                 device=device, worlds=worlds,
+                                 spawn_x=spawn[0], spawn_y=spawn[1])
     if args.checkpoint:
         # resumable chunked driver: a killed sweep restarted with the
         # same --checkpoint picks up at the saved cursor.  As in the JAX
@@ -141,7 +151,8 @@ def cmd_sweep(args):
         gd = torch.linalg.vector_norm(states.sim.p_base[:, 0:2]
                                       - scn.target_xy, dim=-1)
         _summary(args, device, gd, (upright < 0.7).sum(),
-                 m.qp_converged.mean(), m.slip_ticks.mean())
+                 m.qp_converged.mean(), m.slip_ticks.mean(),
+                 m.ground_feet)
         return
     rank = 0
     if args.sharded:
@@ -156,7 +167,8 @@ def cmd_sweep(args):
         res = sweep.run_batch(cfg, scn, n_cycles=args.cycles)
     if rank == 0:
         _summary(args, device, res.goal_dist, res.fell.sum(),
-                 res.qp_converged.mean(), res.slip_frac.mean())
+                 res.qp_converged.mean(), res.slip_frac.mean(),
+                 res.metrics.ground_feet)
 
 
 def bench_rate(B: int = 2048, device="cuda", bursts: int = 3,
@@ -189,6 +201,18 @@ def cmd_bench(args):
     rec = bench_rate(device=device)
     print(card_line(device))
     print(json.dumps({**rec, "device": str(device)}))
+
+
+def _worlds(text: str) -> str:
+    """--worlds: names of sim/terrain.HEIGHT_WORLDS, comma-separated."""
+    from .sim.terrain import HEIGHT_WORLDS
+
+    bad = [w for w in text.split(",") if w and w not in HEIGHT_WORLDS]
+    if bad:
+        raise argparse.ArgumentTypeError(
+            f"unknown height world(s) {bad}; choose from "
+            f"{sorted(HEIGHT_WORLDS)}")
+    return text
 
 
 def main(argv=None):
@@ -233,6 +257,12 @@ def main(argv=None):
     ps.add_argument("--robot", choices=("dogbot", "anymal", "hyq"),
                     default="dogbot",
                     help="closed-loop robot model (models/zoo.py)")
+    ps.add_argument("--worlds", type=_worlds, default="",
+                    help="comma-separated height worlds ("
+                         + ", ".join(HEIGHT_WORLDS) + "), dealt evenly "
+                         "over the lanes, each lane spawned at x in "
+                         "[-0.3, 0.3], y in [0.4, 0.6] m (default: flat "
+                         "ground, spawns at the origin)")
     ps.add_argument("--device", default="cuda", help=device_help)
     ps.add_argument("--sharded", action="store_true",
                     help="split over this process's cards (with --device "

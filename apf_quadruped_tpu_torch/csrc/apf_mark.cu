@@ -9,7 +9,7 @@
 
 #include <cuda_runtime.h>
 
-constexpr int MARK_COUNT = 12;
+constexpr int MARK_COUNT = 13;
 
 // outside any namespace, so that a trace names it `apf_mark_kernel<ID>()`
 template <int ID>

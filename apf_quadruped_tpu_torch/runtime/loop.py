@@ -30,7 +30,7 @@ the named strides of gait.NAMED_MODE_FLAGS run one flag every cycle.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -84,6 +84,11 @@ class CycleMetrics(NamedTuple):
     early_td_frac: torch.Tensor  # mean share of early-touch-down legs
     wrench_est: torch.Tensor   # (B, 6) external-wrench estimate at the end
     wrench_peak: torch.Tensor  # peak estimated force magnitude
+    # share of the cycle's loaded foot-ticks (in contact, normal force over
+    # physics.LOADED_N) on ground raised or tilted (physics.ContactInfo.
+    # on_feature), on a height map; None on flat ground, where the cycle
+    # computes nothing for it.  The JAX package has no such field
+    ground_feet: Optional[torch.Tensor] = None
 
 
 def _gait_schedule(cfg: EngineConfig, st: LoopState, ast: apf.ApfState):
@@ -136,8 +141,11 @@ class _CycleInputs(NamedTuple):
     knot_ratio: float            # sim.dt / mpc.dt in the working precision
 
 
-# the tick's trace values, in the order _tick returns them
+# the tick's trace values, in the order _tick returns them; on a height
+# map followed by TRACE_GROUND: the loaded feet, and those of them on
+# raised or tilted ground, counted a tick
 TRACE = ("conv", "slip", "taumax", "track", "td", "qdd", "wpeak")
+TRACE_GROUND = ("loaded", "on_feature")
 
 
 def _tick(cfg: EngineConfig, cyc: _CycleInputs, carry, k: torch.Tensor):
@@ -146,7 +154,8 @@ def _tick(cfg: EngineConfig, cyc: _CycleInputs, carry, k: torch.Tensor):
     step -> margin integral, observer and trace values (_tick_tail).
     carry = (SimState, ApfState, td_flag (B, 4) bool, td_pos (B, 4, 3),
     prev_contact (B, 4) bool, ObserverState); k (1,) int64 on the
-    tensors' device.  Returns (carry, the TRACE values, each (B,))."""
+    tensors' device.  Returns (carry, the trace values of
+    `_trace_names(cyc.terr)`, each (B,))."""
     sim_st, ast, _, _, _, obs = carry
     profiling.mark("tick.refs", k)
     wst, ref, td_flag, td_pos = _tick_refs(cfg, cyc, carry, k)
@@ -215,6 +224,7 @@ def _tick_refs(cfg: EngineConfig, cyc: _CycleInputs, carry,
     wst = wbc.WbcState(p_base=sim_st.p_base, R_wb=sim_st.R_wb, q=sim_st.q,
                        u=sim_st.u, contact=contact, crawl=cyc.crawling)
     if terr.h_map is not None:
+        profiling.mark("ground", k)
         wst = wst._replace(cone_rot=terrain_mod.cone_basis(
             terr, feet_now[..., 0:2]))
     return wst, ref, td_flag, td_pos
@@ -237,16 +247,25 @@ def _tick_tail(cfg: EngineConfig, carry, out, cinfo, ref):
            td_flag.to(sim_st.q.dtype).mean(dim=-1),
            out.udot[..., 6:18].abs().amax(dim=-1),
            torch.linalg.vector_norm(obs.w[..., 0:3], dim=-1))
+    if cinfo.on_feature is not None:
+        row += (cinfo.loaded.sum(dim=-1).to(sim_st.q.dtype),
+                cinfo.on_feature.sum(dim=-1).to(sim_st.q.dtype))
     return (sim_st, ast, td_flag, td_pos, in_contact, obs), row
 
 
-def _trace_buffers(B: int, n_ticks: int, dtype, device):
-    """(B, n_ticks) buffers of the TRACE values: the stacked outputs of
-    the JAX module's scan."""
+def _trace_names(terr: terrain_mod.Terrain) -> tuple:
+    """The names of a tick's trace values on `terr`."""
+    return TRACE + (TRACE_GROUND if terr.h_map is not None else ())
+
+
+def _trace_buffers(B: int, n_ticks: int, dtype, device, names=TRACE):
+    """(B, n_ticks) buffers of the trace values `names`: the stacked
+    outputs of the JAX module's scan (and the ground counts, on a height
+    map)."""
     return tuple(torch.empty((B, n_ticks), device=device,
                              dtype=torch.bool if name in ("conv", "slip")
                              else dtype)
-                 for name in TRACE)
+                 for name in names)
 
 
 def _step(cfg: EngineConfig, cyc: _CycleInputs, carry, k: torch.Tensor,
@@ -265,7 +284,8 @@ def _scan_ticks_eager(cfg: EngineConfig, cyc: _CycleInputs, carry,
                       n_ticks: int):
     """n_ticks eager ticks: (carry, the TRACE buffers (B, n_ticks))."""
     q = carry[0].q
-    trace = _trace_buffers(q.shape[0], n_ticks, q.dtype, q.device)
+    trace = _trace_buffers(q.shape[0], n_ticks, q.dtype, q.device,
+                           _trace_names(cyc.terr))
     k = torch.zeros(1, dtype=torch.int64, device=q.device)
     for _ in range(n_ticks):
         carry = _step(cfg, cyc, carry, k, trace)
@@ -280,7 +300,8 @@ def _scan_ticks(cfg: EngineConfig, cyc: _CycleInputs, carry, n_ticks: int):
     q = carry[0].q
     if q.device.type != "cuda":
         return _scan_ticks_eager(cfg, cyc, carry, n_ticks)
-    trace = _trace_buffers(q.shape[0], n_ticks, q.dtype, q.device)
+    trace = _trace_buffers(q.shape[0], n_ticks, q.dtype, q.device,
+                           _trace_names(cyc.terr))
     carry = graph.scan(("tick", cfg, n_ticks), functools.partial(_step, cfg),
                        cyc, carry, trace, n_ticks)
     return carry, trace
@@ -468,7 +489,7 @@ def _cycle_tail_eager(cfg: EngineConfig, tail: _TailInputs, carry,
     """The next LoopState and the cycle's metrics (reductions over the
     ticks' trace), op by op."""
     sim_st, ast, _, _, _, obs = carry
-    tr = dict(zip(TRACE, trace))
+    tr = dict(zip(TRACE + TRACE_GROUND, trace))
     dtype = sim_st.q.dtype
     com_end = rbd.com_position(cfg.robot, sim_st.p_base, sim_st.R_wb,
                                sim_st.q)
@@ -487,7 +508,10 @@ def _cycle_tail_eager(cfg: EngineConfig, tail: _TailInputs, carry,
         foot_mu=tail.foot_mu,
         track_err=tr["track"].mean(dim=-1),
         early_td_frac=tr["td"].mean(dim=-1),
-        wrench_est=obs.w, wrench_peak=tr["wpeak"].amax(dim=-1))
+        wrench_est=obs.w, wrench_peak=tr["wpeak"].amax(dim=-1),
+        ground_feet=(tr["on_feature"].sum(dim=-1)
+                     / torch.clamp(tr["loaded"].sum(dim=-1), min=1.0)
+                     if "on_feature" in tr else None))
     warm_next = tail.warm_next
     return LoopState(sim=sim_st, apf=ast, cycle_idx=tail.cycle_idx,
                      crawling=tail.crawling, warm_u=warm_next[0],
@@ -504,8 +528,15 @@ def run(cfg: EngineConfig, st: LoopState, terr: terrain_mod.Terrain,
     for _ in range(n_cycles):
         st, m = run_cycle(cfg, st, terr, target_xy, dist_sched)
         per_cycle.append(m)
-    return st, CycleMetrics(*(torch.stack(v, dim=1)
-                              for v in zip(*per_cycle)))
+    return st, join_metrics(per_cycle, lambda v: torch.stack(v, dim=1))
+
+
+def join_metrics(parts, join) -> CycleMetrics:
+    """CycleMetrics `parts` joined field by field, `join` given each
+    field's tensors; a field the parts leave None (ground_feet on flat
+    ground) stays None."""
+    return CycleMetrics(*(None if v[0] is None else join(v)
+                          for v in zip(*parts)))
 
 
 def init(cfg: EngineConfig, batch: int = 1, xy=(0.0, 0.0), yaw: float = 0.0,

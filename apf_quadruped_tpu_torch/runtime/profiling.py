@@ -55,10 +55,14 @@ def trace(*name):
 
 # the stages a mark opens, in the order of their IDs: a tick (loop._step),
 # the WBC solve (wbc._solve_impl, inside the tick and alone) and the
-# Riccati plan (planner._plan_riccati); each `*.end` closes its unit
+# Riccati plan (planner._plan_riccati); each `*.end` closes its unit.
+# `ground`, on a height map only, holds a tick's ground lookups: the cone
+# bases at the measured feet (loop._tick_refs) and each physics
+# substep's height and normal (sim/physics._contact), each followed by
+# the stage it interrupts
 STAGES = ("tick.refs", "wbc.build", "wbc.qp", "wbc.torque", "wbc.end",
           "physics", "tick.tail", "tick.end", "plan.pack", "plan.ipm",
-          "plan.unpack", "plan.end")
+          "plan.unpack", "plan.end", "ground")
 _STAGE_ID = {s: i for i, s in enumerate(STAGES)}
 
 _marks_on = False

@@ -9,33 +9,43 @@ split the batch over parallel/mesh.py's device list and gather the result
 on every process.  Scenario generation is host-side data loading: the
 native C++ rasterizer (runtime/native.py) when g++ builds it, else numpy
 with the JAX module's RNG order; the two give different scenarios from
-one seed.
+one seed.  A batch may put each lane on a height map of its own (towr's
+example worlds, sim/terrain.HEIGHT_WORLDS) and spawn each lane at a pose
+of its own.
 """
 
 from __future__ import annotations
 
 import os
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
 from ..config import EngineConfig
+from ..models import rbd
+from ..ops.rotations import rot_z
 from ..parallel import mesh as mesh_mod
 from ..sim import disturbance, terrain as terrain_mod
 from . import checkpoint, loop, native, profiling
 
+# the spawn ranges (m) of the `sweep` command on height worlds: every
+# foot on the flat, the front feet within a cycle's walk of the features,
+# which start at y = 1.0
+WORLD_SPAWN_X, WORLD_SPAWN_Y = (-0.3, 0.3), (0.4, 0.6)
+
 
 class Scenario(NamedTuple):
-    """A batch of scenarios: terrain mu-map + navigation target +
-    disturbances + spawn pose, scenario axis first."""
+    """A batch of scenarios: terrain mu-map (+ height map) + navigation
+    target + disturbances + spawn pose, scenario axis first."""
 
     mu_map: torch.Tensor       # (B, res, res)
     target_xy: torch.Tensor    # (B, 2)
     dist_sched: torch.Tensor   # (B, n_events, 8) — sim.disturbance rows
     spawn_xy: torch.Tensor     # (B, 2)
     spawn_yaw: torch.Tensor    # (B,)
+    h_map: Optional[torch.Tensor] = None   # (B, res, res); None = flat
 
 
 class SweepResult(NamedTuple):
@@ -72,51 +82,76 @@ def cli_config(iters: int = 15, robot: str = "dogbot", gait: str = "trot",
 def random_scenarios(cfg: EngineConfig, n: int, seed: int = 0,
                      n_patches: int = 4, dtype=torch.float32,
                      use_native: bool | None = None,
-                     device="cuda") -> Scenario:
+                     device="cuda", worlds=None, spawn_x=None,
+                     spawn_y=None) -> Scenario:
     """Randomized slippery-patch navigation scenarios, on the card unless
-    `device` says otherwise."""
+    `device` says otherwise.
+
+    worlds: names of sim/terrain.HEIGHT_WORLDS, dealt evenly over the
+    lanes in an order drawn from the seed (each world's map built once),
+    for a height map a lane; None = flat ground.  spawn_x, spawn_y:
+    (low, high) ranges of each lane's spawn (m); None = 0.  These draws
+    follow every other, so without them the scenarios are the same."""
     device = resolve_device(device)
     def t(v):
         return torch.as_tensor(np.asarray(v), device=device).to(dtype)
 
-    zeros = dict(spawn_xy=torch.zeros((n, 2), dtype=dtype, device=device),
-                 spawn_yaw=torch.zeros(n, dtype=dtype, device=device))
     if use_native is None:
         use_native = native.available()
     if use_native:
         gen = native
         mu = gen.terrains(n, cfg.sim.terrain_res, cfg.sim.terrain_extent,
                           cfg.sim.mu_default, n_patches, seed=seed + 1)
-        return Scenario(mu_map=t(mu),
-                        target_xy=t(gen.targets(n, seed=seed + 2)),
-                        dist_sched=t(gen.disturbances(n, 2, horizon_s=4.0,
-                                                      seed=seed + 3)),
-                        **zeros)
-    rng = np.random.default_rng(seed)
-    terr = terrain_mod.random_patches(cfg.sim, rng, n_patches=n_patches,
-                                      batch=n, dtype=dtype, device=device)
-    targets = np.stack([rng.uniform(-0.6, 0.6, n), rng.uniform(1.2, 2.2, n)],
-                       axis=-1)
-    dist = disturbance.random_pushes(rng, horizon_s=4.0, n=2, f_max=40.0,
-                                     batch=n, dtype=dtype, device=device)
-    return Scenario(mu_map=terr.mu_map, target_xy=t(targets),
-                    dist_sched=dist, **zeros)
+        mu, targets = t(mu), gen.targets(n, seed=seed + 2)
+        dist = t(gen.disturbances(n, 2, horizon_s=4.0, seed=seed + 3))
+        rng = np.random.default_rng(seed + 4)
+    else:
+        rng = np.random.default_rng(seed)
+        mu = terrain_mod.random_patches(cfg.sim, rng, n_patches=n_patches,
+                                        batch=n, dtype=dtype,
+                                        device=device).mu_map
+        targets = np.stack([rng.uniform(-0.6, 0.6, n),
+                            rng.uniform(1.2, 2.2, n)], axis=-1)
+        dist = disturbance.random_pushes(rng, horizon_s=4.0, n=2,
+                                         f_max=40.0, batch=n, dtype=dtype,
+                                         device=device)
+    h_map = None
+    if worlds:
+        maps = torch.stack([terrain_mod.HEIGHT_WORLDS[w](
+            cfg.sim, dtype=dtype, device=device).h_map for w in worlds])
+        deal = rng.permutation(np.resize(np.arange(len(worlds)), n))
+        h_map = maps[torch.as_tensor(deal, device=device)]
+
+    def spawn(rng_xy):
+        return (np.zeros(n) if rng_xy is None
+                else rng.uniform(*rng_xy, n))
+    spawn_xy = np.stack([spawn(spawn_x), spawn(spawn_y)], axis=-1)
+    return Scenario(mu_map=mu, target_xy=t(targets), dist_sched=dist,
+                    spawn_xy=t(spawn_xy),
+                    spawn_yaw=torch.zeros(n, dtype=dtype, device=device),
+                    h_map=h_map)
 
 
 def _terrain(cfg: EngineConfig, scn: Scenario) -> terrain_mod.Terrain:
     return terrain_mod.Terrain(mu_map=scn.mu_map,
                                extent=cfg.sim.terrain_extent,
-                               res=cfg.sim.terrain_res)
+                               res=cfg.sim.terrain_res, h_map=scn.h_map)
 
 
 def init_batch(cfg: EngineConfig, scn: Scenario) -> loop.LoopState:
-    """Initial LoopStates for a scenario batch (spawn xy applied to the
-    base; the friction anchors stay at the origin spawn, as in the JAX
-    module)."""
+    """Initial LoopStates for a scenario batch, each lane at rest at its
+    spawn as loop.init(xy, yaw) puts one robot: the base at the spawn's xy
+    and yaw, the friction anchors under the feet there.  (The JAX
+    module's init_batch moves only the base, its anchors left under the
+    origin's feet; at the zero spawns its generator makes, the two
+    agree.)"""
     st = loop.init(cfg, scn.target_xy.shape[0], dtype=scn.target_xy.dtype,
                    device=scn.target_xy.device)
     p = torch.cat([scn.spawn_xy, st.sim.p_base[:, 2:3]], dim=-1)
-    return st._replace(sim=st.sim._replace(p_base=p))
+    R = rot_z(scn.spawn_yaw)
+    feet = rbd.foot_positions_world(cfg.robot, p, R, st.sim.q)
+    return st._replace(sim=st.sim._replace(p_base=p, R_wb=R,
+                                           anchor=feet[..., 0:2].clone()))
 
 
 def step_batch(cfg: EngineConfig, scn: Scenario, states: loop.LoopState,
@@ -162,7 +197,7 @@ def step_batch_sharded(cfg: EngineConfig, scn: list, states: list,
 
 def _concat_metrics(parts) -> loop.CycleMetrics:
     """Per-chunk CycleMetrics (B, n, ...) joined on the cycle axis."""
-    return loop.CycleMetrics(*(torch.cat(v, dim=1) for v in zip(*parts)))
+    return loop.join_metrics(parts, lambda v: torch.cat(v, dim=1))
 
 
 CURSOR = "cursor.pt"

@@ -12,12 +12,16 @@ card).  Contact per foot: a normal spring-damper along the terrain normal
 and an anchor-based stick-slip tangential spring clamped to the friction
 cone mu(x, y) f_n; a clamped foot drags its anchor (Coulomb sliding) and
 counts as slipping.  A blown-up lane is kept finite (nan_to_num + clip) so
-it can be flagged instead of poisoning the batch.
+it can be flagged instead of poisoning the batch.  On a height map the
+contact's ground lookups sit in a stage `ground` of their own
+(runtime/profiling.py marks), and the last substep flags the loaded feet
+whose ground is raised or tilted (runtime/loop.py's `ground_feet`).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -25,7 +29,15 @@ from ..config import EngineConfig
 from ..models import rbd
 from ..ops.chol import spd_factor, spd_solve
 from ..ops.rotations import rot_z, skew
+from ..runtime import profiling
 from . import terrain as terrain_mod
+
+# a loaded foot's ground counts as raised above this height (m), and as
+# tilted where its normal leans more than 5 degrees from the vertical
+RAISED_M = 0.01
+TILTED_NZ = math.cos(math.radians(5.0))
+# the normal force (N) above which a foot in contact counts as loaded
+LOADED_N = 5.0
 
 
 class SimState(NamedTuple):
@@ -44,15 +56,28 @@ class ContactInfo(NamedTuple):
     # (.., 4, 3) contact force averaged over the step's substeps (filled by
     # step(); the momentum observer's measurement)
     forces_avg: torch.Tensor | None = None
+    # on a height map, of the step's last substep (None on flat ground):
+    # (.., 4) bool, in contact with a normal force over LOADED_N
+    loaded: Optional[torch.Tensor] = None
+    # (.., 4) bool, loaded on ground raised over RAISED_M or tilted past
+    # 5 degrees
+    on_feature: Optional[torch.Tensor] = None
 
 
 def _contact(cfg: EngineConfig, st: SimState, terr: terrain_mod.Terrain,
-             feet: torch.Tensor, Jc: torch.Tensor):
+             feet: torch.Tensor, Jc: torch.Tensor, flag_ground: bool = False):
+    """The contact of one substep: (ContactInfo, new anchors); with
+    `flag_ground` on a height map, its `loaded` and `on_feature` flags."""
     s = cfg.sim
+    on_map = terr.h_map is not None
     v_feet = (Jc @ st.u.unsqueeze(-1)).reshape(feet.shape)
     p_xy = feet[..., 0:2]
+    if on_map:
+        profiling.mark("ground", feet)
     ground_z = terrain_mod.sample_height(terr, p_xy)
     normal = terrain_mod.sample_normal(terr, p_xy)
+    if on_map:
+        profiling.mark("physics", feet)
 
     depth = (cfg.robot.foot_radius - (feet[..., 2] - ground_z)) * normal[..., 2]
     in_c = depth > 0.0
@@ -72,7 +97,7 @@ def _contact(cfg: EngineConfig, st: SimState, terr: terrain_mod.Terrain,
     scale = torch.where(over, ft_max / torch.clamp(ft_norm, min=1e-9),
                         torch.ones_like(ft_norm))
     ft = ft_raw * (scale * in_c)[..., None]
-    slipping = in_c & over & (fn > 5.0)
+    slipping = in_c & over & (fn > LOADED_N)
 
     # free feet re-anchor at the foot; sliding feet drag the anchor so the
     # spring force equals the clamped force
@@ -81,7 +106,12 @@ def _contact(cfg: EngineConfig, st: SimState, terr: terrain_mod.Terrain,
         in_c[..., None], torch.where(over[..., None], anchor_slide, st.anchor),
         p_xy)
     f = ft + fn[..., None] * normal
-    return ContactInfo(forces=f, in_contact=in_c, slipping=slipping), new_anchor
+    info = ContactInfo(forces=f, in_contact=in_c, slipping=slipping)
+    if on_map and flag_ground:
+        loaded = in_c & (fn > LOADED_N)
+        info = info._replace(loaded=loaded, on_feature=loaded & (
+            (ground_z > RAISED_M) | (normal[..., 2] < TILTED_NZ)))
+    return info, new_anchor
 
 
 def contact_forces(cfg: EngineConfig, st: SimState,
@@ -99,17 +129,19 @@ def step(cfg: EngineConfig, st: SimState, tau: torch.Tensor,
 
     tau (.., 12) joint torques held over the step; f_dist (.., 3) optional
     external force at the base; f_feet (.., 4, 3) optional external forces
-    at the feet, applied through the contact Jacobian.
+    at the feet, applied through the contact Jacobian.  The ContactInfo
+    is the last substep's, with the substeps' mean force.
     """
     dt = cfg.sim.dt / cfg.sim.substeps
     zeros3 = torch.zeros_like(tau[..., 0:3])
     ext = torch.cat([zeros3 if f_dist is None else f_dist, zeros3, tau],
                     dim=-1)
     forces = []
-    for _ in range(cfg.sim.substeps):
+    for i in range(cfg.sim.substeps):
         feet = rbd.foot_positions_world(cfg.robot, st.p_base, st.R_wb, st.q)
         Jc = rbd.contact_jacobian_mixed(cfg.robot, st.p_base, st.R_wb, st.q)
-        info, anchor = _contact(cfg, st, terr, feet, Jc)
+        info, anchor = _contact(cfg, st, terr, feet, Jc,
+                                flag_ground=i == cfg.sim.substeps - 1)
         M, h = rbd.mass_and_bias(cfg.robot, st.p_base, st.R_wb, st.q, st.u)
         f_ext = info.forces if f_feet is None else info.forces + f_feet
         gen = -h + (f_ext.flatten(-2).unsqueeze(-2) @ Jc).squeeze(-2)

@@ -712,7 +712,8 @@ def closed_loop(dev, card, build_spd_s):
     with np.load(ROOT / "tests" / "data" / "loop_golden.npz") as f:
         g = {k: f[k] for k in f.files}
     scn_g = convert.unflatten(g, "scn", sweep.Scenario, dev)
-    scn_g = sweep.Scenario(*(v.to(f32) for v in scn_g))
+    scn_g = sweep.Scenario(*(None if v is None else v.to(f32)
+                                  for v in scn_g))
     st_g, m_g = sweep.step_batch(cfg, scn_g, sweep.init_batch(cfg, scn_g), 1)
     worst = golden_gate(g, "", {"state": st_g, "metrics": m_g})
     print(f"[loop] vs JAX float32 golden: every leaf within its gate, "
@@ -2814,7 +2815,8 @@ def gait_modes(dev, card):
     with np.load(ROOT / "tests" / "data" / "mode_golden.npz") as f:
         g = {k: f[k] for k in f.files}
     scn = convert.unflatten(g, "scn", sweep.Scenario, dev)
-    scn = sweep.Scenario(*(v.to(torch.float32) for v in scn))
+    scn = sweep.Scenario(*(None if v is None else v.to(torch.float32)
+                          for v in scn))
     cycles = {}
     for key in g:
         hit = re.match(r"f32\.(\w+)\.c(\d+)\.", key)
@@ -2900,7 +2902,8 @@ def option_scenarios(g, case, device, dtype):
 
     prefix = f"scn_{case}" if f"scn_{case}.target_xy" in g else "scn"
     scn = convert.unflatten(g, prefix, sweep.Scenario, device)
-    return sweep.Scenario(*(v.to(dtype) for v in scn))
+    return sweep.Scenario(*(None if v is None else v.to(dtype)
+                           for v in scn))
 
 
 def batch_cycles(cfg, scn, n, crawling=None):
@@ -3060,8 +3063,8 @@ def switch_worlds_options(dev, card):
     cfg = sweep.cli_config(gait="adaptive")
     scn = convert.unflatten(g, "scn", sweep.Scenario, dev)
     jobs.append((g, "switch", cfg, functools.partial(
-        batch_cycles, cfg, sweep.Scenario(*(v.to(torch.float32)
-                                            for v in scn)),
+        batch_cycles, cfg, sweep.Scenario(*(
+            None if v is None else v.to(torch.float32) for v in scn)),
         n_cycles(g, "switch"),
         torch.as_tensor(g["init.crawling"], device=dev))))
     g = load("world")

@@ -150,7 +150,7 @@ def test_bytes_a_chunk_do_not_grow(scn, tmp_path, monkeypatch):
         return written[-1]
 
     monkeypatch.setattr(checkpoint, "save", counting_save)
-    small = sweep.Scenario(*(v[:2] for v in scn))
+    small = sweep.Scenario(*(None if v is None else v[:2] for v in scn))
     sweep.run_resumable(CFG, small, 4, chunk=1, ckpt_dir=tmp_path / "c")
     per_chunk = [a + b for a, b in zip(written[0::2], written[1::2])]
     assert len(per_chunk) == 4

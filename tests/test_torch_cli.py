@@ -151,6 +151,27 @@ def test_sweep_robot_and_sharded(small, capsys):
     assert capsys.readouterr().out.strip() == lines[1]
 
 
+def test_sweep_on_height_worlds(small, capsys):
+    """`sweep --worlds` deals the height worlds over the lanes and prints
+    the share of loaded foot-ticks on them; an unknown world is refused."""
+    seen = []
+    real = sweep.random_scenarios
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(sweep, "random_scenarios",
+                   lambda *a, **kw: seen.append(real(*a, **kw)) or seen[-1])
+        cli.main(SWEEP + ["--worlds", "slope,stairs"])
+    line = _summary(capsys.readouterr().out)
+    assert line.startswith("scenarios=2 cycles=2 device=cpu")
+    assert " ground_feet=" in line
+    scn, = seen
+    assert scn.h_map.shape[0] == 2
+    assert bool((scn.spawn_xy[:, 1] >= sweep.WORLD_SPAWN_Y[0]).all())
+    cli.main(SWEEP)
+    assert "ground_feet" not in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        cli.main(SWEEP + ["--worlds", "slope,moon"])
+
+
 def test_bench_rate_at_a_small_batch():
     rec = cli.bench_rate(B=4, device="cpu", bursts=3, reps=2)
     assert rec["metric"] == "batched_mpc_solves_per_s_h20_b4_conv1.00"
@@ -193,5 +214,7 @@ def test_run_hands_viz_numpy(small, monkeypatch):
     cli.main(["run", "--device", "cpu", "--cycles", "1", "--plot", "x.png"])
     (args, kw), m = seen
     assert isinstance(m, loop.CycleMetrics)
-    for v in list(m) + list(args) + [kw["target_xy"]]:
+    # flat ground: the height-map counter ground_feet is absent (None)
+    assert m.ground_feet is None
+    for v in list(m[:-1]) + list(args) + [kw["target_xy"]]:
         assert isinstance(v, (np.ndarray, float)), type(v)

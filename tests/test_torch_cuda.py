@@ -886,6 +886,40 @@ def test_graphed_tick_equals_eager(dev, case):
     _assert_bitwise(graphed, _eager(_two_cycles, *args))
 
 
+def test_flat_and_height_sweeps_capture_graphs_apart(dev):
+    """A flat batch and a batch on per-lane height maps in one process:
+    each captures its own head, tick and tail, the flat batch's replays
+    give what they gave before the height batch's capture bit for bit, and
+    its tick graph launches the kernels it launched alone; the height
+    batch's ground_feet is a share, the flat one's None."""
+    from apf_quadruped_tpu_torch.runtime import graph, sweep
+    cfg = _short_cycles(sweep.cli_config(), early_td=True)
+    flat = sweep.random_scenarios(cfg, GRAPH_B, seed=3, use_native=False,
+                                  device=dev)
+    hilly = sweep.random_scenarios(
+        cfg, GRAPH_B, seed=3, use_native=False, device=dev,
+        worlds=["slope", "stairs"], spawn_x=(-0.3, 0.3),
+        spawn_y=(0.85, 0.95))
+    graph.clear()
+    first = sweep.step_batch(cfg, flat, sweep.init_batch(cfg, flat), 2)
+    flat_graphs = list(graph.entries())
+    assert len(_ticks()) == 1
+    ticks = _ticks()[0].launches
+    hill = sweep.step_batch(cfg, hilly, sweep.init_batch(cfg, hilly), 2)
+    assert len(graph.entries()) == 2 * len(flat_graphs)
+    assert len(_ticks()) == 2 and _ticks()[0].launches == ticks
+    again = sweep.step_batch(cfg, flat, sweep.init_batch(cfg, flat), 2)
+    assert len(graph.entries()) == 2 * len(flat_graphs)
+    _assert_bitwise(first, again)
+    _assert_bitwise(hill, _eager(
+        lambda: sweep.step_batch(cfg, hilly, sweep.init_batch(cfg, hilly),
+                                 2)))
+    assert first[1].ground_feet is None
+    g = hill[1].ground_feet
+    assert bool(((g >= 0) & (g <= 1)).all()) and bool(g.any())
+    graph.clear()
+
+
 def test_graph_reused_for_other_scenarios(dev):
     """A second batch of other scenarios of the same shape replays the
     cached graph (no capture) and equals its eager run bit for bit; the
@@ -1981,8 +2015,9 @@ def _marked_case(what, dev):
     {unit's first stage: count})."""
     from apf_quadruped_tpu_torch import wbc
     from apf_quadruped_tpu_torch.runtime import loop
-    if what == "tick":
-        cfg, terr, tgt, dist = _graph_case("trot", dev)
+    if what in ("tick", "tick height"):
+        cfg, terr, tgt, dist = _graph_case(
+            "height" if what == "tick height" else "trot", dev)
         st = loop.init(cfg, GRAPH_B, device=dev)
         n_ticks = int(round(cfg.gait.trot_cycle / cfg.sim.dt))
         return (lambda: loop.run_cycle(cfg, st, terr, tgt, dist),
@@ -2007,8 +2042,8 @@ _UNIT_STAGES = {"tick.refs": ("tick.refs", "wbc.build", "wbc.qp",
                               "wbc.end"),
                 "plan.pack": ("plan.pack", "plan.ipm", "plan.unpack")}
 
-MARKED = ["tick", "wbc B=1", "wbc B=64", "plan resident", "plan fused",
-          "plan sqp_iters=2"]
+MARKED = ["tick", "tick height", "wbc B=1", "wbc B=64", "plan resident",
+          "plan fused", "plan sqp_iters=2"]
 
 
 def _mark_counts(fn, tries=4):
@@ -2078,6 +2113,11 @@ def test_marked_replay_records_each_mark_once_per_unit(dev, what):
             for s in _UNIT_STAGES[first]}
     if "plan.pack" in units:     # one end a plan, whatever its SQP steps
         want["plan.end"] = 1
+    if what == "tick height":    # the cone bases, and each substep's lookups
+        from apf_quadruped_tpu_torch.runtime import sweep
+        per_tick = 1 + sweep.cli_config().sim.substeps
+        want["ground"] = units["tick.refs"] * per_tick
+        want["physics"] = units["tick.refs"] * per_tick
     assert dict(counts) == want, (counts, tr.share)
     counts, tr = _mark_counts(fn)
     assert not counts and not any("apf_mark_kernel" in n

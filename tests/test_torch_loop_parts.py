@@ -291,4 +291,5 @@ def test_convert_carries_jax_state():
     scn_t = tsweep.random_scenarios(CFG, 2, seed=3, dtype=torch.float64,
                                     use_native=False, device="cpu")
     for a, b in zip(convert.scenario(scn_j), scn_t):
-        assert torch.equal(a, b)
+        # h_map: flat ground on both sides
+        assert (a is None and b is None) or torch.equal(a, b)

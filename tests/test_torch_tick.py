@@ -88,8 +88,10 @@ def test_tick_carry_keeps_its_layout(inputs):
         carry, row = loop._tick(cfg, cyc, carry, _k(i))
         assert [(t.shape, t.dtype, t.device)
                 for t in graph._tensors(carry)] == layout
+    # on a height map the ground counts follow the flat tick's values
     assert [(v.shape, v.dtype) for v in row] == (
-        [((B,), torch.bool)] * 2 + [((B,), F64)] * 5)
+        [((B,), torch.bool)] * 2
+        + [((B,), F64)] * (len(loop._trace_names(cyc.terr)) - 2))
 
 
 def test_trace_is_the_ticks_stacked(inputs):
@@ -101,7 +103,9 @@ def test_trace_is_the_ticks_stacked(inputs):
     for i in range(N_TICKS):
         carry, row = loop._tick(cfg, cyc, carry, _k(i))
         rows.append(row)
-    assert len(trace) == len(loop.TRACE)
+    assert len(trace) == len(loop._trace_names(cyc.terr))
+    assert len(trace) == len(loop.TRACE) + (
+        len(loop.TRACE_GROUND) if cyc.terr.h_map is not None else 0)
     for j, buf in enumerate(trace):
         assert buf.shape == (B, N_TICKS)
         assert torch.equal(buf, torch.stack([r[j] for r in rows], dim=-1))

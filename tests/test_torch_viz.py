@@ -66,7 +66,8 @@ def test_plot_metrics_of_the_port_loop(tmp_path):
     _, metrics = loop.run(cfg, st, terrain.flat(cfg.sim, batch=(1,)),
                           torch.tensor([[0.0, 1.0]]),
                           disturbance.empty()[None], n_cycles=2)
-    m = loop.CycleMetrics(*(convert.to_numpy(v[0]) for v in metrics))
+    m = loop.CycleMetrics(*(None if v is None else convert.to_numpy(v[0])
+                            for v in metrics))
     assert m.rob_mean.shape == (2,)
     path = str(tmp_path / "metrics.png")
     viz.plot_metrics(path, m)
